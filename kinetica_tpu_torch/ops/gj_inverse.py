@@ -1,0 +1,103 @@
+"""Batched Gauss-Jordan inverse: kernel 2 of the port (``csrc/gj_inverse.cu``).
+
+Counterpart of ``kinetica_tpu/ops/pallas_linalg.py::gj_inverse`` (kernel
+``_gj_batch_kernel``, launched by ``_gj_call``): the f32 explicit inverse of a
+batch of (n, n) matrices by Gauss-Jordan with partial pivoting. The pivot
+of column k is the first row i >= k that holds the column's largest
+|a_ik|; a pivot with |p| < 1e-30 is clamped to +-1e-30 (0 -> +1e-30), so a
+singular member comes out finite instead of NaN.
+
+On a CUDA tensor :func:`gj_inverse` launches the kernel or raises; on a
+CPU tensor it runs :func:`gj_inverse_plain`, the same elimination as a
+batched column loop in PyTorch. ``torch.linalg.inv`` is not a stand-in:
+it has no pivot clamp.
+
+The kernel takes n <= 128 (one block holds the augmented [A | I] block in
+shared memory). Wider systems need the block-Schur composition of the
+reference (``pallas_linalg.py::schur_inverse``), which is not ported yet.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda_build import check_launch, load_library
+
+MAX_N = 128
+PIVOT_FLOOR = 1e-30
+
+# kernel launches since the last reset (the plain path never counts)
+launches = 0
+
+
+def _check(A: torch.Tensor) -> None:
+    if A.dtype != torch.float32:
+        raise TypeError(f"gj_inverse: A must be float32, got {A.dtype}")
+    if A.ndim != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"gj_inverse: A must be (B, n, n), got {tuple(A.shape)}")
+    if A.shape[1] > MAX_N:
+        raise ValueError(
+            f"gj_inverse: n = {A.shape[1]} > {MAX_N}; wider systems need the "
+            "block-Schur composition (ROADMAP.md, Queue 2: schur_inverse), "
+            "which is not ported yet")
+    if not A.is_contiguous():
+        raise ValueError("gj_inverse: A must be contiguous")
+
+
+def gj_inverse_plain(A: torch.Tensor) -> torch.Tensor:
+    """The kernel's elimination as a batched column loop (any device)."""
+    B, n, _ = A.shape
+    dev = A.device
+    eye = torch.eye(n, dtype=A.dtype, device=dev).expand(B, n, n)
+    aug = torch.cat([A, eye], dim=2)
+    rows = torch.arange(n, device=dev)
+    lanes = torch.arange(B, device=dev)
+    for k in range(n):
+        score = torch.where(rows >= k, aug[:, :, k].abs(),
+                            torch.full_like(aug[:, :, k], -1.0))
+        top = score.amax(dim=1, keepdim=True)
+        m = torch.where(score >= top, rows, n).amin(dim=1)
+        m = torch.where(m < n, m, k)                     # NaN column
+        row_k = aug[:, k, :].clone()
+        row_m = aug[lanes, m, :]
+        piv = row_m[:, k]
+        piv = torch.where(piv.abs() < PIVOT_FLOOR,
+                          torch.where(piv < 0, -PIVOT_FLOOR, PIVOT_FLOOR)
+                          .to(piv.dtype), piv)
+        row_p = row_m * (1.0 / piv)[:, None]
+        aug[lanes, m, :] = row_k                         # swap (m == k: no-op)
+        f = aug[:, :, k].clone()
+        f[:, k] = 0.0
+        aug = aug - f[:, :, None] * row_p[:, None, :]
+        aug[:, k, :] = row_p
+    return aug[:, :, n:].contiguous()
+
+
+def gj_inverse(A: torch.Tensor) -> torch.Tensor:
+    """(B, n, n) f32 -> (B, n, n) f32 inverses, n <= 128."""
+    _check(A)
+    if A.device.type == "cpu":
+        return gj_inverse_plain(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"gj_inverse: unsupported device {A.device}")
+    global launches
+    out = torch.empty_like(A)
+    if A.shape[0] == 0:
+        return out
+    err = _library().gj_inverse_launch(
+        A.data_ptr(), out.data_ptr(), A.shape[0], A.shape[1],
+        torch.cuda.current_stream(A.device).cuda_stream)
+    check_launch(err, "gj_inverse")
+    launches += 1
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library("gj_inverse")
+    fn = lib.gj_inverse_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,202 @@
+"""Newton linear algebra of the stiff solver, batched over lanes.
+
+Counterpart of ``kinetica_tpu/ops/linalg.py`` and of the Newton-Schulz
+refinement in ``kinetica_tpu/ops/dd.py``, in the reference's accelerator
+form:
+
+* the Newton matrix A = I - c J is built in J's dtype (f32 on the main
+  path), equilibrated, inverted in f32 by the Gauss-Jordan kernel
+  (:mod:`kinetica_tpu_torch.ops.gj_inverse`), refined by Newton-Schulz and
+  stored with its scales folded in;
+* every solve is one f32 matvec through that inverse plus exactly two
+  refinement sweeps against native f64 residuals.
+
+Hopper has native f64, so the reference's double-f32 pair residuals are
+not carried over: the accurate Newton-Schulz residual is an f64 matmul
+(the reference's ``f64dot`` form).
+
+Lane gating: the reference compacts the factor rebuild to the lanes whose
+``need`` flag is set with a ``custom_vmap`` rule. Here the needing lanes
+are picked with one device-to-host read, factored as a sub-batch, and
+copied back with ``index_copy``; the other lanes keep their old factor.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import host_sync
+from .gj_inverse import gj_inverse
+
+NS_TOL = 3e-4          # Newton-Schulz factor tolerance (max |I - A M|)
+NS_PROXY_TOL = 1e-3    # skip refinement when eps32 * max|M| is below this
+NS_CAP = 0.03          # upper clamp of the phase-2 gate
+NS_MAX_SWEEPS = 4
+REFINE_SWEEPS = 2      # per-solve refinement sweeps on the inverse paths
+EPS32 = 1.2e-7
+
+
+class NewtonFactors(NamedTuple):
+    lu: torch.Tensor    # (B, n, n) equilibrated inverse ("inv_gated") or LU
+    piv: torch.Tensor   # (B, n) pivots ("lu"); empty for "inv_gated"
+    J: torch.Tensor     # (B, n, n) Jacobian the factor was built from
+    c: torch.Tensor     # (B,) c in A = I - c J
+
+
+def _newton_matrix(J: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """I - c J in J's dtype (c is cast first, as in the reference)."""
+    n = J.shape[-1]
+    eye = torch.eye(n, dtype=J.dtype, device=J.device)
+    return eye - c.to(J.dtype)[:, None, None] * J
+
+
+def _equilibrate(A: torch.Tensor):
+    """Row then column max-norm scaling of A, in f32 -> (As, dr, dc)."""
+    A32 = A.to(torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    dr = 1.0 / A32.abs().amax(dim=2).clamp_min(tiny)
+    As = A32 * dr[:, :, None]
+    dc = 1.0 / As.abs().amax(dim=1).clamp_min(tiny)
+    return As * dc[:, None, :], dr, dc
+
+
+def _rnorm(R: torch.Tensor) -> torch.Tensor:
+    return R.abs().amax(dim=(1, 2))
+
+
+def _residual_f64(A32: torch.Tensor, M32: torch.Tensor) -> torch.Tensor:
+    """R = I - A M with a native f64 product (exact f32 -> f64 casts)."""
+    n = A32.shape[-1]
+    eye = torch.eye(n, dtype=torch.float64, device=A32.device)
+    return (eye - A32.double() @ M32.double()).to(torch.float32)
+
+
+def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
+    """Refine approximate f32 inverses ``minv`` of ``A32`` where needed.
+
+    Per lane, as the reference's accelerator path (``dd.py:271-436`` with
+    the ``f64dot`` residual and the gated phase 2):
+
+    1. a free proxy ``eps32 * max|M| > NS_PROXY_TOL`` selects the lanes
+       worth refining;
+    2. up to 3 cheap sweeps M <- M + M (I - A M) with the f32 residual,
+       while it measures above ``NS_TOL``;
+    3. lanes whose cheap residual is still above its floor estimate
+       ``clamp(4 eps32 sqrt(n) max|M|, NS_TOL, NS_CAP)`` take up to
+       ``NS_MAX_SWEEPS`` accurate sweeps with the f64 residual, until it
+       is below sqrt(0.3 NS_TOL).
+
+    Returns ``(minv, rn)``, rn the last (or predicted) residual per lane.
+    """
+    tol = NS_TOL
+    B, n, _ = A32.shape
+    dev = A32.device
+    f32 = torch.float32
+    eye = torch.eye(n, dtype=f32, device=dev)
+    inf = torch.full((B,), float("inf"), dtype=f32, device=dev)
+    need = EPS32 * _rnorm(minv) > NS_PROXY_TOL
+    rn_cheap = inf
+    if host_sync.any_true(need):
+        active = need
+        for _ in range(3):
+            R = eye - A32 @ minv
+            rn = _rnorm(R)
+            rn_cheap = torch.where(active, rn, rn_cheap)
+            do = active & (rn > tol)
+            minv = torch.where(do[:, None, None], minv + minv @ R, minv)
+            active = do
+        floor_est = (torch.tensor(EPS32, dtype=f32)
+                     * torch.sqrt(torch.tensor(float(n), dtype=f32))
+                     * _rnorm(minv))
+        tol_eff = torch.clamp(4.0 * floor_est, tol, NS_CAP)
+        need = need & (rn_cheap > tol_eff)
+
+    exit_rn = float(torch.tensor((0.3 * tol) ** 0.5, dtype=f32))
+    thresh = max(exit_rn, float(torch.tensor(tol, dtype=f32)))
+    rn = torch.where(need, inf, torch.zeros_like(inf))
+    for _ in range(NS_MAX_SWEEPS):
+        active = rn > thresh
+        if not host_sync.any_true(active):
+            break
+        R = _residual_f64(A32, minv)
+        rn_new = _rnorm(R)
+        do = active & (rn_new > tol)
+        minv = torch.where(do[:, None, None], minv + minv @ R, minv)
+        rn = torch.where(active, rn_new, rn)
+    rn = torch.where(rn > tol, torch.minimum(rn, rn * rn), rn)
+    return minv, rn
+
+
+def _inv_factor(A: torch.Tensor) -> torch.Tensor:
+    """Equilibrate -> Gauss-Jordan kernel -> Newton-Schulz -> fold scales."""
+    As, dr, dc = _equilibrate(A)
+    minv = gj_inverse(As.contiguous())
+    minv, _ = newton_schulz_refine(minv, As)
+    return dc[:, :, None] * minv * dr[:, None, :]
+
+
+def newton_factor(J: torch.Tensor, c: torch.Tensor, method: str = "inv_gated",
+                  need: torch.Tensor | None = None,
+                  prev: NewtonFactors | None = None) -> NewtonFactors:
+    """Factor A = I - c J for a batch of lanes.
+
+    ``method`` "inv_gated" (the main path): the equilibrated f32 explicit
+    inverse with its scales folded in. With ``need`` given, only the lanes
+    whose flag is set are rebuilt; the others keep ``prev.lu`` (zeros
+    without ``prev``). "lu": f64 LU factors of A (``torch.linalg``), an
+    explicit cross-check option only.
+    """
+    B, n, _ = J.shape
+    if method == "inv_gated":
+        if need is None:
+            lu = _inv_factor(_newton_matrix(J, c))
+        else:
+            lu = (prev.lu.clone() if prev is not None else
+                  torch.zeros(B, n, n, dtype=torch.float32, device=J.device))
+            idx = host_sync.true_indices(need)
+            if idx.numel():
+                A = _newton_matrix(J[idx], c[idx])
+                lu.index_copy_(0, idx, _inv_factor(A))
+        piv = torch.zeros(B, 0, dtype=torch.int32, device=J.device)
+        return NewtonFactors(lu=lu, piv=piv, J=J, c=c)
+    if method == "lu":
+        A = _newton_matrix(J, c).double()
+        lu, piv = torch.linalg.lu_factor(A)
+        if need is not None and prev is not None:
+            keep = ~need[:, None, None]
+            lu = torch.where(keep, prev.lu, lu)
+            piv = torch.where(keep[:, :, 0], prev.piv, piv)
+        return NewtonFactors(lu=lu, piv=piv, J=J, c=c)
+    raise ValueError(f"linsolve {method!r} is not ported "
+                     "(kinetica_tpu_torch has 'inv_gated' and 'lu')")
+
+
+def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def newton_solve(f: NewtonFactors, b: torch.Tensor,
+                 method: str = "inv_gated") -> torch.Tensor:
+    """Solve (I - c J) dy = b for (B, n) f64 right-hand sides.
+
+    "inv_gated": dy = M b through the f32 inverse, then exactly two
+    refinement sweeps r = b - (dy - c J dy) (the J matvec in J's dtype,
+    the residual in b's dtype), dy += M r. "lu": one f64 LU solve.
+    """
+    dtype = b.dtype
+    if method == "lu":
+        return torch.linalg.lu_solve(f.lu, f.piv, b.unsqueeze(-1)).squeeze(-1)
+    if method != "inv_gated":
+        raise ValueError(f"linsolve {method!r} is not ported")
+
+    def solve32(v):
+        return _matvec(f.lu, v.to(f.lu.dtype)).to(dtype)
+
+    c = f.c.to(dtype)[:, None]
+    dy = solve32(b)
+    for _ in range(REFINE_SWEEPS):
+        Jdy = _matvec(f.J, dy.to(f.J.dtype)).to(dtype)
+        r = b - (dy - c * Jdy)
+        dy = dy + solve32(r)
+    return dy
