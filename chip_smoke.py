@@ -1,13 +1,23 @@
 """Smoke run of kinetica_tpu_torch on one NVIDIA GPU.
 
-Builds the port's two CUDA kernels from ``kinetica_tpu_torch/csrc``,
-checks each against its plain PyTorch version at the shapes of the main
-path, then drives the main path once through its public entry point: the
-64-profile variable-temperature sweep of ``bench.py`` (1095 reactions,
-73 species, 28 async chunks of 0.5 s, continuous rates) through
-``kinetica_tpu_torch.parallel.batching.EnsembleProblem``. Member 0 is held
-against the pure-numpy scipy-BDF baseline, and the kernels' launch counts
-during the timed solve must be positive.
+Builds the port's five CUDA kernels from ``kinetica_tpu_torch/csrc`` (one
+``nvcc`` each, all at once), checks each against its plain PyTorch version
+at the shapes of the main paths, then drives three paths through their
+public entry points, on ``synthetic_pyrolysis_network(24)`` (1095
+reactions, 73 species) under 40-60 K/s ramps from 500 K, 28 chunks of
+0.5 s:
+
+* phase 5: the 64-profile continuous-rate sweep of ``bench.py`` through
+  ``EnsembleProblem(rate_mode="continuous")`` (fused RHS, ``inv_gated``);
+* phase 6: member 0's ramp through ``solve_network`` (chunkwise,
+  continuous, ``linsolve="inv_fused"``, ``rhs_contraction="dd"``);
+* phase 7: the 64 ramps through the discrete ensemble (rate updates
+  every 0.1 s, ``inv_fused`` + ``dd``).
+
+Each path is held against a pure-numpy scipy-BDF reference, and every
+kernel of a path must have launched during that path's run (the counts
+are set to 0, and the once-per-process grid probe re-armed, just before
+it).
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA GPU. Exits non-zero, printing no result line, when there is
@@ -23,8 +33,10 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-N_CARBONS, BATCH, TF, CHUNK = 24, 64, 14.0, 0.5
+N_CARBONS, BATCH, TF, CHUNK, TS_UPDATE = 24, 64, 14.0, 0.5, 0.1
 RTOL, ATOL, K_MAX = 1e-8, 1e-10, 1e12
+KERNELS = ("fused_rhs", "gj_inverse", "dd_contract", "newton_solve",
+           "grid_probe")
 
 
 def fail(msg: str) -> None:
@@ -67,7 +79,7 @@ def import_port():
         fail("jax was imported")
 
 
-def build_problem(device):
+def build_problem(device, ts_update=None, **par_kw):
     from kinetica_tpu_torch.calculators.builtin import (
         PrecalculatedArrheniusCalculator)
     from kinetica_tpu_torch.conditions.condition_set import ConditionSet
@@ -78,13 +90,50 @@ def build_problem(device):
     sd, rd, Ea, A = synthetic_pyrolysis_network(N_CARBONS)
     calc = PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX, device=device)
     conditions = [ConditionSet({"T": LinearGradientProfile(
-        rate=float(r), X_start=500.0, X_end=500.0 + float(r) * TF)})
+        rate=float(r), X_start=500.0, X_end=500.0 + float(r) * TF)},
+        ts_update=ts_update)
         for r in np.linspace(40.0, 60.0, BATCH)]
+    kw = dict(linsolve="auto", rhs_contraction="auto")
+    kw.update(par_kw)
     pars = ODESimulationParams(
         tspan=(0.0, TF), u0={f"C{N_CARBONS}": 1.0}, solve_chunks=True,
         solve_chunkstep=CHUNK, low_k_cutoff="none", abstol=ATOL, reltol=RTOL,
-        linsolve="auto", jac_policy="lazy", lu_drift_tol=0.3)
+        jac_policy="lazy", lu_drift_tol=0.3, **kw)
     return sd, rd, calc, conditions, pars
+
+
+class Counts:
+    """The launch and host-sync counters of one path's run."""
+
+    def __init__(self):
+        from kinetica_tpu_torch.ops import (dd_contract, fused_rhs, gj_inverse,
+                                            grid_probe, host_sync, newton_solve)
+        self.mods = dict(fused_rhs=fused_rhs, gj_inverse=gj_inverse,
+                         dd_contract=dd_contract, newton_solve=newton_solve,
+                         grid_probe=grid_probe)
+        self.host_sync = host_sync
+
+    def reset(self):
+        """Counts to 0, and the grid probe re-armed so the path runs it."""
+        for mod in self.mods.values():
+            mod.launches = 0
+        self.mods["grid_probe"].passed = False
+        self.host_sync.count = 0
+
+    def read(self):
+        return ({k: m.launches for k, m in self.mods.items()},
+                self.host_sync.count)
+
+
+def require_launched(phase, launches, names):
+    missing = [n for n in names if launches[n] <= 0]
+    if missing:
+        fail(f"phase {phase}: kernel(s) {missing} not launched during the "
+             f"path's run: {launches}")
+
+
+def final_err(u, ref):
+    return float(np.max(np.abs(u - ref) / max(ref.sum(), 1.0)))
 
 
 def main() -> None:
@@ -94,12 +143,19 @@ def main() -> None:
     import_port()
     import kinetica_tpu_torch.precision as precision
     from kinetica_tpu_torch.models.mass_action import augment, build_mass_action
-    from kinetica_tpu_torch.ops import cuda_build, fused_rhs, gj_inverse, host_sync
-    from kinetica_tpu_torch.ops.linalg import _equilibrate, _newton_matrix
+    from kinetica_tpu_torch.ops import cuda_build, gj_inverse, grid_probe
+    from kinetica_tpu_torch.ops.dd_contract import DDContraction
+    from kinetica_tpu_torch.ops.fused_rhs import FusedMassActionRHS
+    from kinetica_tpu_torch.ops.linalg import (_equilibrate, _inv_factor,
+                                               _newton_matrix)
+    from kinetica_tpu_torch.ops.newton_solve import (fused_newton_solve,
+                                                     fused_newton_solve_plain)
     from kinetica_tpu_torch.parallel.batching import EnsembleProblem
-    from kinetica_tpu_torch.solving.methods import VariableODESolve
+    from kinetica_tpu_torch.solving.methods import (VariableODESolve,
+                                                    solve_network)
     from kinetica_tpu_torch.solving.solve_utils import make_u0
-    from kinetica_tpu_torch.testing.cpu_reference import scipy_bdf_baseline
+    from kinetica_tpu_torch.testing.cpu_reference import (
+        scipy_bdf_baseline, scipy_bdf_discrete_baseline)
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -114,26 +170,30 @@ def main() -> None:
         f"{torch.backends.cudnn.allow_tf32} f32 precision="
         f"{torch.get_float32_matmul_precision()}")
 
-    # ---- phase 2: build both kernels from the checkout's sources ----
-    for name in ("fused_rhs", "gj_inverse"):
-        cuda_build.load_library(name)
+    # ---- phase 2: build all five kernels from the checkout's sources ----
+    t0 = time.perf_counter()
+    cuda_build.load_libraries(KERNELS)
+    say(f"phase 2 built {len(KERNELS)} kernels in "
+        f"{time.perf_counter() - t0:.2f} s (concurrent nvcc)")
+    for name in KERNELS:
         info = cuda_build.build_info[name]
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln]
         say(f"phase 2 build {name}: {info['seconds']:.2f} s; "
             f"{' | '.join(regs) or 'cached'}")
 
+    counts = Counts()
     sd, rd, calc, conditions, pars = build_problem(dev)
     net = build_mass_action(rd, sd.n, device=dev)
     rng = np.random.default_rng(2024)
-    kernels = []
+    kernels = {}
 
     # ---- phase 3: fused RHS kernel vs its plain version, B=64 / nc=24 ----
-    from kinetica_tpu_torch.ops.fused_rhs import FusedMassActionRHS
     fused = FusedMassActionRHS(net.N, net.reac_slots, dev)
     u = 10.0 ** rng.uniform(-14, 0, (BATCH, sd.n))
     u[rng.random((BATCH, sd.n)) < 0.2] = 0.0
-    u_aug = augment(torch.as_tensor(u, device=dev), net.delta).contiguous()
+    u_t = torch.as_tensor(u, device=dev)
+    u_aug = augment(u_t, net.delta).contiguous()
     k = calc(torch.as_tensor(rng.uniform(700.0, 1300.0, BATCH),
                              dtype=torch.float64, device=dev)).contiguous()
     du_k = fused(u_aug, k)
@@ -153,11 +213,12 @@ def main() -> None:
         f"{max_err1:.3e} (max |du| {float(du_p.abs().max()):.3e}), max |d| / "
         f"sum|N r| {rel1:.3e} (<= 1e-12); kernel {ms1:.4f} ms, plain "
         f"{ms1p:.4f} ms")
-    kernels.append({"name": "fused_rhs", "route": "cuda",
-                    "source": "kinetica_tpu_torch/csrc/fused_rhs.cu",
-                    "replaces": "kinetica_tpu/ops/pallas_matmul.py:384",
-                    "max_abs_err": max_err1, "max_rel_err": rel1,
-                    "ms": ms1, "plain_ms": ms1p})
+    kernels["fused_rhs"] = {
+        "name": "fused_rhs", "route": "cuda",
+        "source": "kinetica_tpu_torch/csrc/fused_rhs.cu",
+        "replaces": "kinetica_tpu/ops/pallas_matmul.py:384",
+        "max_abs_err": max_err1, "max_rel_err": rel1, "ms": ms1,
+        "plain_ms": ms1p}
 
     # ---- phase 4: Gauss-Jordan kernel vs its plain version, B=64 / n=73 ----
     # Newton matrices I - cJ from the nc=24 f32 Jacobian at the mid-ramp
@@ -173,7 +234,8 @@ def main() -> None:
     J = jnet.jac_matmul(torch.as_tensor(u_mid, device=dev).float(),
                         calc(T_mid).float())
     c = torch.as_tensor(np.logspace(-11, -5.5, BATCH), device=dev)
-    As, _, _ = _equilibrate(_newton_matrix(J.expand(BATCH, -1, -1), c))
+    JB = J.expand(BATCH, -1, -1).contiguous()
+    As, _, _ = _equilibrate(_newton_matrix(JB, c))
     As = As.contiguous()
     As[BATCH - 1, :, 5] = 0.0                                  # singular
     M_k = gj_inverse.gj_inverse(As)
@@ -196,11 +258,12 @@ def main() -> None:
         f"{float(M_p[:-1].abs().max()):.3e}, non-singular), max |I - A M| "
         f"{float(resid.max()):.3e} (<= 1e-3, non-singular), singular member "
         f"finite; kernel {ms2:.4f} ms, plain {ms2p:.4f} ms")
-    kernels.append({"name": "gj_inverse", "route": "cuda",
-                    "source": "kinetica_tpu_torch/csrc/gj_inverse.cu",
-                    "replaces": "kinetica_tpu/ops/pallas_linalg.py:71",
-                    "max_abs_err": max_err2, "max_rel_err": float(rel.max()),
-                    "ms": ms2, "plain_ms": ms2p})
+    kernels["gj_inverse"] = {
+        "name": "gj_inverse", "route": "cuda",
+        "source": "kinetica_tpu_torch/csrc/gj_inverse.cu",
+        "replaces": "kinetica_tpu/ops/pallas_linalg.py:71",
+        "max_abs_err": max_err2, "max_rel_err": float(rel.max()), "ms": ms2,
+        "plain_ms": ms2p}
 
     # ---- phase 4b: each kernel above 48 KB of shared memory ----
     # off the main path: the launch that raises the dynamic shared-memory
@@ -226,39 +289,151 @@ def main() -> None:
         f"{rel_w1:.3e} (<= 1e-12); gj_inverse n=128 max rel Frobenius "
         f"{rel_w2:.3e} (<= 1e-5)")
 
-    # ---- phase 5: the main path, warm-up then timed ----
+    # ---- phase 4c: contraction kernel vs its plain version ----
+    # the rates of phase 3; the kernel must also equal the fused RHS bit
+    # for bit (same CSR rows, same order, same rates)
+    dd = DDContraction(net.N, dev)
+    r_c = net.rates(u_t, k).contiguous()
+    du_dd = dd(r_c)
+    torch.cuda.synchronize()
+    du_ddp = dd.plain(r_c)
+    bound_c = r_c.abs() @ net.N.abs()
+    err_c = (du_dd - du_ddp).abs()
+    max_err3 = float(err_c.max())
+    rel3 = float((err_c / bound_c.clamp_min(1e-300)).max())
+    n_diff = int((du_dd != du_k).sum())
+    dd_w = DDContraction(N_w, dev)
+    r_w = r_w.contiguous()
+    rel3_w = float(((dd_w(r_w) - dd_w.plain(r_w)).abs()
+                    / bound_w.clamp_min(1e-300)).max())
+    if not (rel3 <= 1e-12 and rel3_w <= 1e-12) or n_diff:
+        fail(f"dd_contract: max |d| / sum|N r| {rel3:.3e} (nr={rd.nr}), "
+             f"{rel3_w:.3e} (nr={nr_w}); {n_diff} entries differ from fused_rhs")
+    ms3 = cuda_ms(lambda: dd(r_c))
+    ms3p = cuda_ms(lambda: dd.plain(r_c))
+    say(f"phase 4c dd_contract: B={BATCH} nr={rd.nr} ns={sd.n}: max |d| "
+        f"{max_err3:.3e}, max |d| / sum|N r| {rel3:.3e} (<= 1e-12), equal to "
+        f"fused_rhs bit for bit; nr={nr_w}: {rel3_w:.3e} (<= 1e-12); kernel "
+        f"{ms3:.4f} ms, plain {ms3p:.4f} ms")
+    kernels["dd_contract"] = {
+        "name": "dd_contract", "route": "cuda",
+        "source": "kinetica_tpu_torch/csrc/dd_contract.cu",
+        "replaces": "kinetica_tpu/ops/pallas_matmul.py:103",
+        "max_abs_err": max_err3, "max_rel_err": rel3, "ms": ms3,
+        "plain_ms": ms3p}
+
+    # ---- phase 4d: Newton-solve kernel vs its plain version ----
+    # the Newton matrices of phase 4 (without the singular member), M from
+    # the main path's factor (equilibrate, Gauss-Jordan, Newton-Schulz,
+    # scales folded); lane STALE's M built at a stale 1.2 c, which leaves
+    # it far from converged after 4 sweeps (c |J| ~ 7e4): it is held only
+    # to its plain version
+    STALE = BATCH // 2
+    A4 = _newton_matrix(JB, c)
+    M4 = _inv_factor(A4).contiguous()
+    M4[STALE] = _inv_factor(_newton_matrix(JB[STALE:STALE + 1],
+                                           1.2 * c[STALE:STALE + 1]))[0]
+    b4 = torch.as_tensor(rng.standard_normal((BATCH, sd.n)), device=dev)
+    dy_k = fused_newton_solve(M4, JB, b4, c)
+    torch.cuda.synchronize()
+    dy_p = fused_newton_solve_plain(M4, JB, b4, c)
+    A64 = (torch.eye(sd.n, dtype=torch.float64, device=dev)
+           - c[:, None, None] * JB.double())
+
+    def solve_checks(dy, dyp, A, b):
+        lane = ((dy - dyp).abs().amax(dim=1)
+                / dyp.abs().amax(dim=1).clamp_min(1e-300))
+        res = ((b - (A @ dy[..., None])[..., 0]).norm(dim=1) / b.norm(dim=1))
+        return float((dy - dyp).abs().max()), float(lane.max()), res
+
+    max_err4, lane4, res4 = solve_checks(dy_k, dy_p, A64, b4)
+    # n = 128: random J (rows of mixed scale), M the f32 inverse of I - cJ
+    n_w = 128
+    J_w = torch.as_tensor(rng.standard_normal((8, n_w, n_w)), device=dev)
+    c_w = torch.full((8,), 0.05, dtype=torch.float64, device=dev)
+    J_w32 = J_w.float().contiguous()
+    A_w64 = (torch.eye(n_w, dtype=torch.float64, device=dev)
+             - c_w[:, None, None] * J_w32.double())
+    M_w = torch.linalg.inv(A_w64).float().contiguous()
+    b_w = torch.as_tensor(rng.standard_normal((8, n_w)), device=dev)
+    _, lane4_w, res4_w = solve_checks(fused_newton_solve(M_w, J_w32, b_w, c_w),
+                                      fused_newton_solve_plain(M_w, J_w32, b_w,
+                                                               c_w),
+                                      A_w64, b_w)
+    fresh = torch.arange(BATCH, device=dev) != STALE
+    res4_f, res4_s = float(res4[fresh].max()), float(res4[STALE])
+    if not (lane4 <= 1e-5 and lane4_w <= 1e-5 and res4_f <= 1e-4
+            and float(res4_w.max()) <= 1e-4):
+        fail(f"newton_solve: per-lane max |d| / max|dy| {lane4:.3e} (n=73), "
+             f"{lane4_w:.3e} (n=128); max residual {res4_f:.3e} (n=73), "
+             f"stale lane {res4_s:.3e}, {float(res4_w.max()):.3e} (n=128)")
+    ms4 = cuda_ms(lambda: fused_newton_solve(M4, JB, b4, c))
+    ms4p = cuda_ms(lambda: fused_newton_solve_plain(M4, JB, b4, c))
+    say(f"phase 4d newton_solve: B={BATCH} n={sd.n}: per-lane max |d| / "
+        f"max|dy| {lane4:.3e} (<= 1e-5), max |b - A dy| / |b| {res4_f:.3e} "
+        f"(<= 1e-4; lane {STALE}, M at 1.2 c = {float(c[STALE]):.2e}, "
+        f"not bounded: {res4_s:.3e}); n=128: {lane4_w:.3e}, residual "
+        f"{float(res4_w.max()):.3e}; kernel {ms4:.4f} ms, plain {ms4p:.4f} ms")
+    kernels["newton_solve"] = {
+        "name": "newton_solve", "route": "cuda",
+        "source": "kinetica_tpu_torch/csrc/newton_solve.cu",
+        "replaces": "kinetica_tpu/ops/pallas_linalg.py:283",
+        "max_abs_err": max_err4, "max_rel_err": lane4, "ms": ms4,
+        "plain_ms": ms4p}
+
+    # ---- phase 4e: the grid probe ----
+    x = torch.ones(grid_probe.ROWS, grid_probe.COLS, device=dev)
+    out_k = grid_probe.grid_probe(x)
+    torch.cuda.synchronize()
+    err5 = float((out_k - grid_probe.grid_probe_plain(x)).abs().max())
+    if not (err5 <= grid_probe.TOL and grid_probe.passed):
+        fail(f"grid probe: |kernel - plain| {err5:.3e}, passed="
+             f"{grid_probe.passed}")
+    ms5 = cuda_ms(lambda: grid_probe.grid_probe(x))
+    ms5p = cuda_ms(lambda: grid_probe.grid_probe_plain(x))
+    say(f"phase 4e grid_probe: {grid_probe.BLOCKS} blocks into one "
+        f"({grid_probe.ROWS}, {grid_probe.COLS}) output: every element "
+        f"{float(out_k.min()):.1f}, |kernel - plain| {err5:.1e} (<= "
+        f"{grid_probe.TOL}); passed at start-up; kernel {ms5:.4f} ms, plain "
+        f"{ms5p:.4f} ms")
+    kernels["grid_probe"] = {
+        "name": "grid_probe", "route": "cuda",
+        "source": "kinetica_tpu_torch/csrc/grid_probe.cu",
+        "replaces": "kinetica_tpu/ops/pallas_matmul.py:686",
+        "max_abs_err": err5, "ms": ms5, "plain_ms": ms5p}
+    total = dict.fromkeys(KERNELS, 0)
+
+    # ---- phase 5: the continuous sweep, warm-up then the counted run ----
     t0 = time.perf_counter()
     _, cpu_final = scipy_bdf_baseline(sd, rd, calc, prof0, pars.tspan, u0,
                                       RTOL, ATOL, best_of=1)
     cpu_s = time.perf_counter() - t0
-    problem = EnsembleProblem(VariableODESolve(pars, conditions[0], calc),
-                              sd, rd, rate_mode="continuous",
-                              chunk_mode="async", device=dev)
+    method5 = VariableODESolve(pars, conditions[0], calc)
     t0 = time.perf_counter()
-    problem.solve(conditions_list=conditions)
+    EnsembleProblem(method5, sd, rd, rate_mode="continuous",
+                    chunk_mode="async", device=dev).solve(
+                        conditions_list=conditions)
     warm_s = time.perf_counter() - t0
-    fused_rhs.launches = gj_inverse.launches = host_sync.count = 0
+    counts.reset()
+    problem = EnsembleProblem(method5, sd, rd, rate_mode="continuous",
+                              chunk_mode="async", device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ens = problem.solve(conditions_list=conditions)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches = {"fused_rhs": fused_rhs.launches,
-                "gj_inverse": gj_inverse.launches}
-    syncs = host_sync.count
+    launches, syncs = counts.read()
     if not ens.success:
         fail(f"not every lane DONE: {ens.retcodes}")
     if not np.all(np.isfinite(ens.u)) or ens.u.shape != (BATCH, 1 + int(TF / CHUNK), sd.n):
         fail(f"bad solution array {ens.u.shape}")
-    err = float(np.max(np.abs(ens.u[0, -1] - cpu_final)
-                       / max(cpu_final.sum(), 1.0)))
+    err = final_err(ens.u[0, -1], cpu_final)
     if err > 1e-6:
         fail(f"member 0 differs from scipy-BDF by {err:.3e} (> 1e-6)")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel was not launched during the timed solve: {launches}")
+    require_launched(5, launches, ("fused_rhs", "gj_inverse", "grid_probe"))
     steps = np.asarray(ens.stats["n_steps"])
     steps_max, steps_med = int(steps.max()), int(np.median(steps))
-    say(f"phase 5 main path: {rd.nr} rxn / {sd.n} sp, B={BATCH}, "
+    say(f"phase 5 continuous sweep: {rd.nr} rxn / {sd.n} sp, B={BATCH}, "
         f"{problem.n_chunks} async chunks: all DONE; member 0 vs scipy-BDF max "
         f"mole-fraction err {err:.3e}; {sweep_s * 1e3 / BATCH:.2f} ms/profile "
         f"({sweep_s:.3f} s sweep, warm-up {warm_s:.3f} s, scipy-BDF one "
@@ -266,11 +441,94 @@ def main() -> None:
         f"{steps_max}/{steps_med}; {sweep_s * 1e3 / steps_max:.3f} ms/step; "
         f"host syncs {syncs} ({syncs / steps_max:.2f}/step); attempts "
         f"{ens.stats['attempts']} retry batch {ens.stats['retry_batch']}; "
-        f"launches {launches}")
+        f"launches {launches} ({sum(launches.values()) / steps_max:.2f} of "
+        f"these kernels/step)")
+    for kname in KERNELS:
+        total[kname] += launches[kname]
 
-    for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
-    say(json.dumps({"kernels": kernels}))
+    # ---- phase 6: solve_network, member 0's ramp, inv_fused + dd ----
+    sd6, rd6, calc6, conds6, pars6 = build_problem(
+        dev, linsolve="inv_fused", rhs_contraction="dd")
+    counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solve_network(VariableODESolve(pars6, conds6[0], calc6), sd6, rd6,
+                        device=dev)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    launches, syncs = counts.read()
+    sol = out.sol
+    if not sol.success:
+        fail(f"solve_network: {sol.retcode}")
+    if sol.u.shape != (1 + int(TF / CHUNK), sd.n) or not np.all(np.isfinite(sol.u)):
+        fail(f"solve_network: bad solution array {sol.u.shape}")
+    err6 = final_err(sol.u[-1], cpu_final)
+    if err6 > 1e-6:
+        fail(f"solve_network differs from scipy-BDF by {err6:.3e} (> 1e-6)")
+    require_launched(6, launches, ("dd_contract", "newton_solve", "gj_inverse",
+                                   "grid_probe"))
+    if launches["fused_rhs"]:
+        fail(f"phase 6 ran the fused RHS with rhs_contraction='dd': {launches}")
+    st = sol.stats
+    say(f"phase 6 solve_network: chunkwise {st['n_chunks']} x {CHUNK} s, "
+        f"continuous, inv_fused + dd: DONE; vs scipy-BDF max mole-fraction err "
+        f"{err6:.3e}; {single_s * 1e3:.2f} ms/profile; steps {st['n_steps']} "
+        f"(accepted {st['n_accepted']}, rejected {st['n_rejected']}, factors "
+        f"{st['n_lu']}); {single_s * 1e3 / st['n_steps']:.3f} ms/step; host "
+        f"syncs {syncs} ({syncs / st['n_steps']:.2f}/step); launches {launches} "
+        f"({sum(launches.values()) / st['n_steps']:.2f} of these kernels/step)")
+    for kname in KERNELS:
+        total[kname] += launches[kname]
+
+    # ---- phase 7: the discrete ensemble, inv_fused + dd ----
+    sd7, rd7, calc7, conds7, pars7 = build_problem(
+        dev, ts_update=TS_UPDATE, linsolve="inv_fused", rhs_contraction="dd")
+    counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    problem7 = EnsembleProblem(VariableODESolve(pars7, conds7[0], calc7), sd7,
+                               rd7, device=dev)
+    ens7 = problem7.solve(conditions_list=conds7)
+    torch.cuda.synchronize()
+    disc_s = time.perf_counter() - t0
+    launches, syncs = counts.read()
+    if problem7.rate_mode != "discrete" or problem7.chunk_mode != "async":
+        fail(f"ensemble defaults: {problem7.rate_mode}/{problem7.chunk_mode}")
+    if not ens7.success:
+        fail(f"discrete ensemble: not every lane DONE: {ens7.retcodes}")
+    if ens7.u.shape != (BATCH, 1 + int(TF / CHUNK), sd.n) or not np.all(
+            np.isfinite(ens7.u)):
+        fail(f"discrete ensemble: bad solution array {ens7.u.shape}")
+    tstops7 = conds7[0].get_tstops()
+    t0 = time.perf_counter()
+    disc_final = scipy_bdf_discrete_baseline(
+        sd7, rd7, calc7, conds7[0].get_profile("T"), pars7.tspan, u0, RTOL,
+        ATOL, tstops7)
+    cpu7_s = time.perf_counter() - t0
+    err7 = final_err(ens7.u[0, -1], disc_final)
+    if err7 > 1e-6:
+        fail(f"discrete member 0 differs from the segment-wise scipy-BDF "
+             f"reference by {err7:.3e} (> 1e-6)")
+    require_launched(7, launches, ("dd_contract", "newton_solve", "gj_inverse",
+                                   "grid_probe"))
+    steps7 = np.asarray(ens7.stats["n_steps"])
+    s7_max, s7_med = int(steps7.max()), int(np.median(steps7))
+    say(f"phase 7 discrete ensemble: B={BATCH}, {tstops7.size} rate stops "
+        f"({TS_UPDATE} s), {problem7.n_chunks} async chunks, inv_fused + dd: "
+        f"all DONE; member 0 vs segment-wise scipy-BDF max mole-fraction err "
+        f"{err7:.3e} (continuous-k gap {final_err(ens7.u[0, -1], cpu_final):.3e}"
+        f"); {disc_s * 1e3 / BATCH:.2f} ms/profile ({disc_s:.3f} s, set-up "
+        f"included; scipy reference {cpu7_s:.3f} s on this host); steps "
+        f"max/median {s7_max}/{s7_med}; {disc_s * 1e3 / s7_max:.3f} ms/step; "
+        f"host syncs {syncs} ({syncs / s7_max:.2f}/step); attempts "
+        f"{ens7.stats['attempts']}; launches {launches} "
+        f"({sum(launches.values()) / s7_max:.2f} of these kernels/step)")
+    for kname in KERNELS:
+        total[kname] += launches[kname]
+
+    for kname in KERNELS:
+        kernels[kname]["launches"] = total[kname]
+    say(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -18,7 +18,9 @@ follows exactly the reference's per-lane algorithm:
   the nonnegative projection and the status codes;
 * stops that no step straddles, dense output at ``saveat``;
 * async-chunk mode (``chunks=``): consecutive chunk-local-time segments
-  in one loop, each lane advancing to its next chunk on its own.
+  in one loop, each lane advancing to its next chunk on its own;
+* the warm start of a segmented solve (``first_step``, ``warm_start``):
+  a segment resumes the previous one's step size and method state.
 
 The loop is driven from the host. Its decisions that need device values
 (any lane running, which lanes refactor, whether Newton iterations are
@@ -26,8 +28,7 @@ left, whether J needs a refresh) go through
 :mod:`kinetica_tpu_torch.ops.host_sync`, which counts them. The rest of a
 step is branch-free tensor arithmetic on all lanes.
 
-Not ported: the warm-start carry and ``first_step`` of the segmented
-chunk modes, ``jac_policy="always"``, the in-carry debug trace.
+Not ported: ``jac_policy="always"``, the in-carry debug trace.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ import torch
 
 from ..precision import assert_precision_policy
 from . import host_sync
-from .linalg import NewtonFactors, newton_factor, newton_solve
+from .linalg import (NewtonFactors, newton_factor, newton_solve,
+                     resolve_linsolve)
 
 MAX_ORDER = 5
 NEWTON_MAXITER = 4
@@ -169,7 +171,8 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
               nonnegative_project: bool = False, linsolve: str = "inv_gated",
               jac_policy: str = "lazy", lu_drift_tol: float = 0.1,
               prepare: Callable | None = None, args=None,
-              chunks: int | None = None, chunk_offsets=None) -> BDFResults:
+              chunks: int | None = None, chunk_offsets=None,
+              first_step=None, warm_start=None) -> BDFResults:
     """Integrate ``dy/dt = rhs(t, y, pre)`` for a batch of lanes with BDF(1-5).
 
     Args:
@@ -188,15 +191,35 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         attempt (the rate constants of the step); ``a`` is ``args``, or
         ``(chunk_offsets[nc], args)`` in chunk mode. Without it ``pre``
         is ``args``.
+      linsolve: the Newton linear solve, "auto" (= "inv_gated"), "inv",
+        "inv_gated", "inv_fused" or "lu" (:mod:`.linalg`).
       chunks: async-chunk mode — integrate ``chunks`` consecutive segments
         of [t0, tf] in chunk-local time in one loop; each lane moves to its
         next chunk as it finishes one, carrying its method state (D, order,
         h, J, factor, h_ncf). ``ys`` gains a chunk axis and ``max_steps``
         bounds the total over all chunks.
+      first_step: (B,) step size to start with (a segment carries the
+        previous segment's final ``h``); a lane whose value is not finite
+        and positive takes the automatic initial step. It is clamped to
+        the window ``tf - t0``.
+      warm_start: ``(D, order, n_equal_steps)`` of the previous segment's
+        results. A lane with a valid ``first_step`` and ``order >= 1``
+        resumes that method state (D rescaled to the clamped first step,
+        row 0 replaced by ``y0``) instead of restarting at order 1; the
+        others start cold. J and the factor are rebuilt at the start
+        either way.
     """
     assert_precision_policy()
     if jac_policy != "lazy":
         raise ValueError("only jac_policy='lazy' is ported")
+    linsolve = resolve_linsolve(linsolve)
+    if linsolve == "inv_fused":
+        # the Newton-solve kernel reads J row-major: lay J out so once, where
+        # it is evaluated, not at every solve
+        jac_eval = jac
+
+        def jac(t, y, pre):
+            return jac_eval(t, y, pre).contiguous()
     chunked = chunks is not None
     if chunked and (prepare is None or chunk_offsets is None):
         raise ValueError("chunks= mode requires prepare and chunk_offsets")
@@ -273,18 +296,37 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
     pre0 = prep(t_init, t_init, nc0)
     f0 = rhs(t_init, y0, pre0)
     h_init = select_initial_step(rhs, pre0, t_init, y0, f0, tf, rtol, atol)
+    fs, fs_ok = h_init, torch.zeros(B, dtype=torch.bool, device=dev)
+    if first_step is not None:
+        fs = torch.as_tensor(first_step, **f64).expand(B)
+        fs_ok = torch.isfinite(fs) & (fs > 0.0)
+        h_init = torch.where(fs_ok, torch.clamp(fs, max=abs(tf - t0)), h_init)
     D0 = torch.zeros(B, MAX_ORDER + 3, ns, dtype=dtype, device=dev)
     D0[:, 0] = y0
     D0[:, 1] = f0 * h_init.to(dtype)[:, None]
     order0 = torch.ones(B, **i64)
+    neq0 = torch.zeros(B, **i64)
+    if warm_start is not None:
+        D_w, order_w, neq_w = warm_start
+        order_w = torch.as_tensor(order_w, **i64).expand(B)
+        warm_ok = fs_ok & (order_w >= 1)
+        rescale = torch.where(warm_ok, h_init / torch.where(fs_ok, fs, h_init),
+                              torch.ones_like(h_init))
+        D_w = _change_D(torch.as_tensor(D_w, dtype=dtype, device=dev),
+                        torch.clamp(order_w, min=1), rescale)
+        D_w[:, 0] = y0
+        D0 = torch.where(warm_ok[:, None, None], D_w, D0)
+        order0 = torch.where(warm_ok, order_w, order0)
+        neq0 = torch.where(warm_ok, torch.as_tensor(neq_w, **i64).expand(B),
+                           neq0)
     J0 = jac(t_init, y0, pre0)
-    c0 = h_init / alpha[1]
+    c0 = h_init / alpha[order0]
     fact0 = newton_factor(J0, c0.to(dtype), method=linsolve)
     save_ptr0 = int(torch.searchsorted(saveat, torch.tensor([t0], **f64),
                                        right=True)[0])
     zi = torch.zeros(B, **i64)
     s = _State(
-        t=t_init, h=h_init, order=order0, D=D0, n_equal_steps=zi,
+        t=t_init, h=h_init, order=order0, D=D0, n_equal_steps=neq0,
         lu=fact0.lu, piv=fact0.piv, J=J0,
         current_jac=torch.ones(B, dtype=torch.bool, device=dev), c_lu=c0,
         status=torch.full((B,), RUNNING, **i64), n_steps=zi,

@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -67,6 +68,12 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _loaded[name] = lib
     return lib
+
+
+def load_libraries(names) -> list[ctypes.CDLL]:
+    """Build several kernels at once (one ``nvcc`` each) and load them."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return list(pool.map(load_library, names))
 
 
 def check_launch(err: int, name: str) -> None:

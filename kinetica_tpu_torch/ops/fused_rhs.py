@@ -17,6 +17,9 @@ Differences from the reference, on purpose:
   f64 needs neither.
 * per-lane stoichiometry is rejected with ``ValueError``. The reference's
   vmap rule silently used lane 0's network (``pallas_matmul.py:593-596``).
+* the constructor runs the grid probe (:mod:`.grid_probe`) on a CUDA
+  device, as the reference's does on an accelerator, and raises where
+  the reference would fall back to its scan form.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs :func:`fused_rhs_plain`, the plain PyTorch version of the
@@ -30,22 +33,18 @@ import numpy as np
 import torch
 
 from .cuda_build import check_launch, load_library
+from .dd_contract import (SpeciesCSR, dd_contract_plain, host_stoichiometry,
+                          species_csr)
+from .grid_probe import ensure_grid_supported
 
 # kernel launches since the last reset (the plain path never counts)
 launches = 0
 
 
 def fused_rhs_plain(u_aug: torch.Tensor, k: torch.Tensor, slots: torch.Tensor,
-                    species: torch.Tensor, rxn: torch.Tensor,
-                    coef: torch.Tensor, ns: int) -> torch.Tensor:
-    """Gather, product and ``index_add_`` in the inputs' dtype.
-
-    ``(species[e], rxn[e], coef[e])`` lists the nonzeros of N.
-    """
-    r = k * u_aug[:, slots].prod(dim=-1)                  # (B, nr)
-    du = torch.zeros(u_aug.shape[0], ns, dtype=u_aug.dtype,
-                     device=u_aug.device)
-    return du.index_add_(1, species, r[:, rxn] * coef)
+                    csr: SpeciesCSR, ns: int) -> torch.Tensor:
+    """Gather and product, then the contraction's ``index_add_``."""
+    return dd_contract_plain(k * u_aug[:, slots].prod(dim=-1), csr, ns)
 
 
 class FusedMassActionRHS:
@@ -58,13 +57,13 @@ class FusedMassActionRHS:
     """
 
     def __init__(self, N, reac_slots, device):
-        Nh = _host_array(N, np.float64)
+        Nh = host_stoichiometry(N)
         slots = _host_array(reac_slots, np.int64)
-        if Nh.ndim != 2 or slots.ndim != 2:
+        if slots.ndim != 2:
             raise ValueError(
-                "fused_rhs takes one network for all lanes: N must be "
-                f"(nr, ns) and reac_slots (nr, arity), got {Nh.shape} and "
-                f"{slots.shape} (per-lane stoichiometry is not supported)")
+                "fused_rhs takes one network for all lanes: reac_slots must "
+                f"be (nr, arity), got {slots.shape} (per-lane stoichiometry "
+                "is not supported)")
         nr, ns = Nh.shape
         if slots.shape[0] != nr:
             raise ValueError("reac_slots/N reaction count mismatch")
@@ -72,20 +71,12 @@ class FusedMassActionRHS:
             raise ValueError("reac_slots entries must lie in [0, ns]")
         self.nr, self.ns, self.arity = nr, ns, slots.shape[1]
         self.device = torch.device(device)
-        sp, rx = np.nonzero(Nh.T)                 # row-major: by species, then reaction
-        i32 = dict(dtype=torch.int32, device=self.device)
-        self.slots = torch.as_tensor(slots, **i32).contiguous()
-        self.row_ptr = torch.as_tensor(
-            np.concatenate([[0], np.cumsum(np.bincount(sp, minlength=ns))]),
-            **i32)
-        self.rxn = torch.as_tensor(rx, **i32)
-        self.coef = torch.as_tensor(Nh[rx, sp], dtype=torch.float64,
-                                    device=self.device)
-        # int64 copies for the plain version's indexing
+        ensure_grid_supported(self.device)
+        self.slots = torch.as_tensor(slots, dtype=torch.int32,
+                                     device=self.device).contiguous()
+        self.csr = species_csr(Nh, self.device)
+        # int64 copy for the plain version's indexing
         self._slots64 = self.slots.long()
-        self._species64 = torch.as_tensor(sp, dtype=torch.int64,
-                                          device=self.device)
-        self._rxn64 = self.rxn.long()
 
     def _check(self, u_aug: torch.Tensor, k: torch.Tensor) -> None:
         for name, x, width in (("u_aug", u_aug, self.ns + 1), ("k", k, self.nr)):
@@ -106,8 +97,7 @@ class FusedMassActionRHS:
         """(B, ns+1) f64 clipped-augmented u and (B, nr) f64 k -> (B, ns) f64."""
         self._check(u_aug, k)
         if u_aug.device.type == "cpu":
-            return fused_rhs_plain(u_aug, k, self._slots64, self._species64,
-                                   self._rxn64, self.coef, self.ns)
+            return fused_rhs_plain(u_aug, k, self._slots64, self.csr, self.ns)
         if u_aug.device.type != "cuda":
             raise ValueError(f"fused_rhs: unsupported device {u_aug.device}")
         global launches
@@ -118,8 +108,9 @@ class FusedMassActionRHS:
             return du
         err = lib.fused_rhs_launch(
             u_aug.data_ptr(), k.data_ptr(), self.slots.data_ptr(),
-            self.row_ptr.data_ptr(), self.rxn.data_ptr(), self.coef.data_ptr(),
-            du.data_ptr(), u_aug.shape[0], self.ns, self.nr, self.arity,
+            self.csr.row_ptr.data_ptr(), self.csr.rxn.data_ptr(),
+            self.csr.coef.data_ptr(), du.data_ptr(), u_aug.shape[0], self.ns,
+            self.nr, self.arity,
             torch.cuda.current_stream(u_aug.device).cuda_stream)
         check_launch(err, "fused_rhs")
         launches += 1
@@ -128,8 +119,7 @@ class FusedMassActionRHS:
     def plain(self, u_aug: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version on any device (for comparisons)."""
         self._check(u_aug, k)
-        return fused_rhs_plain(u_aug, k, self._slots64, self._species64,
-                               self._rxn64, self.coef, self.ns)
+        return fused_rhs_plain(u_aug, k, self._slots64, self.csr, self.ns)
 
 
 def _host_array(x, dtype) -> np.ndarray:

@@ -8,8 +8,10 @@ form:
   path), equilibrated, inverted in f32 by the Gauss-Jordan kernel
   (:mod:`kinetica_tpu_torch.ops.gj_inverse`), refined by Newton-Schulz and
   stored with its scales folded in;
-* every solve is one f32 matvec through that inverse plus exactly two
-  refinement sweeps against native f64 residuals.
+* "inv" and "inv_gated" solve with one f32 matvec through that inverse
+  plus exactly two refinement sweeps against native f64 residuals;
+  "inv_fused" hands the whole solve, with its adaptive sweeps, to the
+  Newton-solve kernel (:mod:`kinetica_tpu_torch.ops.newton_solve`).
 
 Hopper has native f64, so the reference's double-f32 pair residuals are
 not carried over: the accurate Newton-Schulz residual is an f64 matmul
@@ -28,18 +30,30 @@ import torch
 
 from . import host_sync
 from .gj_inverse import gj_inverse
+from .newton_solve import fused_newton_solve
 
 NS_TOL = 3e-4          # Newton-Schulz factor tolerance (max |I - A M|)
 NS_PROXY_TOL = 1e-3    # skip refinement when eps32 * max|M| is below this
 NS_CAP = 0.03          # upper clamp of the phase-2 gate
 NS_MAX_SWEEPS = 4
-REFINE_SWEEPS = 2      # per-solve refinement sweeps on the inverse paths
+REFINE_SWEEPS = 2      # per-solve refinement sweeps of "inv" / "inv_gated"
+MAX_REFINE = 4         # sweep limit of the adaptive "inv_fused" solve
+INV_METHODS = ("inv", "inv_gated", "inv_fused")
 EPS32 = 1.2e-7
 
 
+def resolve_linsolve(method: str) -> str:
+    """The port's accelerator choice for "auto" on every device: "inv_gated"."""
+    if method == "auto":
+        return "inv_gated"
+    if method not in INV_METHODS + ("lu",):
+        raise ValueError(f"unknown linsolve {method!r}")
+    return method
+
+
 class NewtonFactors(NamedTuple):
-    lu: torch.Tensor    # (B, n, n) equilibrated inverse ("inv_gated") or LU
-    piv: torch.Tensor   # (B, n) pivots ("lu"); empty for "inv_gated"
+    lu: torch.Tensor    # (B, n, n) equilibrated inverse (INV_METHODS) or LU
+    piv: torch.Tensor   # (B, n) pivots ("lu"); empty for the inverses
     J: torch.Tensor     # (B, n, n) Jacobian the factor was built from
     c: torch.Tensor     # (B,) c in A = I - c J
 
@@ -141,14 +155,16 @@ def newton_factor(J: torch.Tensor, c: torch.Tensor, method: str = "inv_gated",
                   prev: NewtonFactors | None = None) -> NewtonFactors:
     """Factor A = I - c J for a batch of lanes.
 
-    ``method`` "inv_gated" (the main path): the equilibrated f32 explicit
-    inverse with its scales folded in. With ``need`` given, only the lanes
-    whose flag is set are rebuilt; the others keep ``prev.lu`` (zeros
-    without ``prev``). "lu": f64 LU factors of A (``torch.linalg``), an
-    explicit cross-check option only.
+    ``method`` "inv_gated" (the main path), "inv" or "inv_fused": the
+    equilibrated f32 explicit inverse with its scales folded in. With
+    ``need`` given, only the lanes whose flag is set are rebuilt; the
+    others keep ``prev.lu`` (zeros without ``prev``). A lane's factor does
+    not depend on which other lanes are rebuilt with it, so the three
+    methods give every lane the same factor. "lu": f64 LU factors of A
+    (``torch.linalg``), an explicit cross-check option only.
     """
     B, n, _ = J.shape
-    if method == "inv_gated":
+    if method in INV_METHODS:
         if need is None:
             lu = _inv_factor(_newton_matrix(J, c))
         else:
@@ -168,8 +184,7 @@ def newton_factor(J: torch.Tensor, c: torch.Tensor, method: str = "inv_gated",
             lu = torch.where(keep, prev.lu, lu)
             piv = torch.where(keep[:, :, 0], prev.piv, piv)
         return NewtonFactors(lu=lu, piv=piv, J=J, c=c)
-    raise ValueError(f"linsolve {method!r} is not ported "
-                     "(kinetica_tpu_torch has 'inv_gated' and 'lu')")
+    raise ValueError(f"unknown linsolve {method!r}")
 
 
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -180,15 +195,22 @@ def newton_solve(f: NewtonFactors, b: torch.Tensor,
                  method: str = "inv_gated") -> torch.Tensor:
     """Solve (I - c J) dy = b for (B, n) f64 right-hand sides.
 
-    "inv_gated": dy = M b through the f32 inverse, then exactly two
-    refinement sweeps r = b - (dy - c J dy) (the J matvec in J's dtype,
-    the residual in b's dtype), dy += M r. "lu": one f64 LU solve.
+    "inv_gated" and "inv": dy = M b through the f32 inverse, then exactly
+    two refinement sweeps r = b - (dy - c J dy) (the J matvec in J's
+    dtype, the residual in b's dtype), dy += M r. "inv_fused": the same
+    with one mandatory and up to ``MAX_REFINE`` adaptive sweeps, in one
+    kernel launch (f32 J). "lu": one f64 LU solve.
     """
     dtype = b.dtype
     if method == "lu":
         return torch.linalg.lu_solve(f.lu, f.piv, b.unsqueeze(-1)).squeeze(-1)
-    if method != "inv_gated":
-        raise ValueError(f"linsolve {method!r} is not ported")
+    if method == "inv_fused":
+        return fused_newton_solve(f.lu.contiguous(),
+                                  f.J.to(torch.float32).contiguous(),
+                                  b.contiguous(), f.c.to(dtype).contiguous(),
+                                  n_sweeps=MAX_REFINE)
+    if method not in ("inv", "inv_gated"):
+        raise ValueError(f"unknown linsolve {method!r}")
 
     def solve32(v):
         return _matvec(f.lu, v.to(f.lu.dtype)).to(dtype)

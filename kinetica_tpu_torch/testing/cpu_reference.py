@@ -114,6 +114,36 @@ def scipy_bdf_baseline(sd, rd, calc, profile, tspan, u0, rtol, atol,
     return dt, sol.y[:, -1]
 
 
+def scipy_bdf_discrete_baseline(sd, rd, calc, profile, tspan, u0, rtol, atol,
+                                tstops):
+    """Discrete-rate scipy BDF: the reference's discrete formalism on CPU.
+
+    The rate vector k(T(tstops[i])) holds over [tstops[i], tstops[i+1])
+    (before the first stop, the first row), as the solver's left-constant
+    lookup reads it; the solve restarts at every stop, so no step straddles
+    a change of k. ``profile`` is a linear ramp, as for
+    :func:`arrhenius_k_of_t`. Returns the final state.
+    """
+    from scipy.integrate import solve_ivp
+
+    rhs_f, jac_f = build_numpy_mass_action(sd, rd)
+    k_of_t = arrhenius_k_of_t(calc, profile)
+    tstops = np.asarray(tstops, float)
+    t_lo, t_hi = float(tspan[0]), float(tspan[1])
+    edges = np.unique(np.concatenate(
+        [[t_lo, t_hi], tstops[(tstops > t_lo) & (tstops < t_hi)]]))
+    u = np.asarray(u0, float)
+    for a, b in zip(edges[:-1], edges[1:]):
+        i = min(max(int(np.searchsorted(tstops, a, side="right")) - 1, 0),
+                tstops.size - 1)
+        k = k_of_t(tstops[i])
+        sol = solve_ivp(rhs_f(lambda t: k), (a, b), u, method="BDF",
+                        jac=jac_f(lambda t: k), rtol=rtol, atol=atol)
+        assert sol.success, f"CPU discrete baseline failed on [{a}, {b}]"
+        u = sol.y[:, -1]
+    return u
+
+
 def scipy_bdf_chunked_baseline(sd, rd, calc, profile, tspan, u0, rtol, atol,
                                n_chunks: int = 40, best_of: int = 3):
     """Chunkwise-local-time scipy BDF — the reference's long-timescale

@@ -142,6 +142,12 @@ def test_port_never_imports_jax():
             "kinetica_tpu_torch.ops.gj_inverse, kinetica_tpu_torch.ops.linalg\n"
             "import kinetica_tpu_torch.ops.bdf, "
             "kinetica_tpu_torch.parallel.batching\n"
+            "import kinetica_tpu_torch.ops.dd_contract, "
+            "kinetica_tpu_torch.ops.newton_solve, "
+            "kinetica_tpu_torch.ops.grid_probe, kinetica_tpu_torch.ops.interp\n"
+            "import kinetica_tpu_torch.solving.methods, "
+            "kinetica_tpu_torch.solving.solve_utils, "
+            "kinetica_tpu_torch.analysis.io\n"
             "import kinetica_tpu_torch.testing.cpu_reference\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'kinetica_tpu' or m.startswith('kinetica_tpu.')]\n"
