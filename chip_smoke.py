@@ -2,10 +2,11 @@
 
 Builds the port's five CUDA kernels from ``kinetica_tpu_torch/csrc`` (one
 ``nvcc`` each, all at once), checks each against its plain PyTorch version
-at the shapes of the main paths, then drives three paths through their
-public entry points, on ``synthetic_pyrolysis_network(24)`` (1095
-reactions, 73 species) under 40-60 K/s ramps from 500 K, 28 chunks of
-0.5 s:
+at the shapes of the main paths (phase 4f: the multi-tile widths n = 181
+and 512, through the block-Schur inverse), then drives five paths through
+their public entry points, under 40-60 K/s ramps from 500 K, 28 chunks of
+0.5 s. On ``synthetic_pyrolysis_network(24)`` (1095 reactions, 73
+species):
 
 * phase 5: the 64-profile continuous-rate sweep of ``bench.py`` through
   ``EnsembleProblem(rate_mode="continuous")`` (fused RHS, ``inv_gated``);
@@ -13,6 +14,13 @@ reactions, 73 species) under 40-60 K/s ramps from 500 K, 28 chunks of
   continuous, ``linsolve="inv_fused"``, ``rhs_contraction="dd"``);
 * phase 7: the 64 ramps through the discrete ensemble (rate updates
   every 0.1 s, ``inv_fused`` + ``dd``).
+
+On ``synthetic_pyrolysis_network(60)`` (4473 reactions, 181 species, the
+multi-tile width of ``bench.py`` at ``KINETICA_BENCH_NC=60``):
+
+* phase 8: the 64-profile continuous sweep, as phase 5 (the factor
+  through the block-Schur inverse);
+* phase 9: member 0's ramp through ``solve_network``, as phase 6.
 
 Each path is held against a pure-numpy scipy-BDF reference, and every
 kernel of a path must have launched during that path's run (the counts
@@ -34,6 +42,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_CARBONS, BATCH, TF, CHUNK, TS_UPDATE = 24, 64, 14.0, 0.5, 0.1
+WIDE_CARBONS, WIDE_N = 60, 512      # the multi-tile network; the widest inverse
 RTOL, ATOL, K_MAX = 1e-8, 1e-10, 1e12
 KERNELS = ("fused_rhs", "gj_inverse", "dd_contract", "newton_solve",
            "grid_probe")
@@ -79,7 +88,8 @@ def import_port():
         fail("jax was imported")
 
 
-def build_problem(device, ts_update=None, **par_kw):
+def build_problem(device, ts_update=None, n_carbons=N_CARBONS, batch=BATCH,
+                  tf=TF, **par_kw):
     from kinetica_tpu_torch.calculators.builtin import (
         PrecalculatedArrheniusCalculator)
     from kinetica_tpu_torch.conditions.condition_set import ConditionSet
@@ -87,16 +97,16 @@ def build_problem(device, ts_update=None, **par_kw):
     from kinetica_tpu_torch.solving.params import ODESimulationParams
     from kinetica_tpu_torch.testing.synthetic import synthetic_pyrolysis_network
 
-    sd, rd, Ea, A = synthetic_pyrolysis_network(N_CARBONS)
+    sd, rd, Ea, A = synthetic_pyrolysis_network(n_carbons)
     calc = PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX, device=device)
     conditions = [ConditionSet({"T": LinearGradientProfile(
-        rate=float(r), X_start=500.0, X_end=500.0 + float(r) * TF)},
+        rate=float(r), X_start=500.0, X_end=500.0 + float(r) * tf)},
         ts_update=ts_update)
-        for r in np.linspace(40.0, 60.0, BATCH)]
+        for r in np.linspace(40.0, 60.0, batch)]
     kw = dict(linsolve="auto", rhs_contraction="auto")
     kw.update(par_kw)
     pars = ODESimulationParams(
-        tspan=(0.0, TF), u0={f"C{N_CARBONS}": 1.0}, solve_chunks=True,
+        tspan=(0.0, tf), u0={f"C{n_carbons}": 1.0}, solve_chunks=True,
         solve_chunkstep=CHUNK, low_k_cutoff="none", abstol=ATOL, reltol=RTOL,
         jac_policy="lazy", lu_drift_tol=0.3, **kw)
     return sd, rd, calc, conditions, pars
@@ -106,12 +116,14 @@ class Counts:
     """The launch and host-sync counters of one path's run."""
 
     def __init__(self):
-        from kinetica_tpu_torch.ops import (dd_contract, fused_rhs, gj_inverse,
-                                            grid_probe, host_sync, newton_solve)
+        from kinetica_tpu_torch.ops import (bdf, dd_contract, fused_rhs,
+                                            gj_inverse, grid_probe, host_sync,
+                                            newton_solve)
         self.mods = dict(fused_rhs=fused_rhs, gj_inverse=gj_inverse,
                          dd_contract=dd_contract, newton_solve=newton_solve,
                          grid_probe=grid_probe)
         self.host_sync = host_sync
+        self.bdf = bdf
 
     def reset(self):
         """Counts to 0, and the grid probe re-armed so the path runs it."""
@@ -119,6 +131,7 @@ class Counts:
             mod.launches = 0
         self.mods["grid_probe"].passed = False
         self.host_sync.count = 0
+        self.bdf.jac_refreshes = 0
 
     def read(self):
         return ({k: m.launches for k, m in self.mods.items()},
@@ -147,7 +160,8 @@ def main() -> None:
     from kinetica_tpu_torch.ops.dd_contract import DDContraction
     from kinetica_tpu_torch.ops.fused_rhs import FusedMassActionRHS
     from kinetica_tpu_torch.ops.linalg import (_equilibrate, _inv_factor,
-                                               _newton_matrix)
+                                               _newton_matrix,
+                                               newton_schulz_refine)
     from kinetica_tpu_torch.ops.newton_solve import (fused_newton_solve,
                                                      fused_newton_solve_plain)
     from kinetica_tpu_torch.parallel.batching import EnsembleProblem
@@ -401,6 +415,78 @@ def main() -> None:
         "source": "kinetica_tpu_torch/csrc/grid_probe.cu",
         "replaces": "kinetica_tpu/ops/pallas_matmul.py:686",
         "max_abs_err": err5, "ms": ms5, "plain_ms": ms5p}
+
+    # ---- phase 4f: the multi-tile widths, n = 181 (B=64) and 512 (B=8) ----
+    # n = 181: Newton matrices of the nc=60 f32 Jacobian at member 0's
+    # mid-ramp state, over phase 4's c range; n = 512: random J at c = 0.025
+    # (phase 4d's n = 128 systems, c scaled by sqrt(128 / n)), as no network
+    # of the repo has 512 species. schur_inverse runs the Gauss-Jordan
+    # kernel on its diagonal blocks (128 + 53; (128 + 128) + (128 + 128))
+    sd60, rd60, calc60, conds60, pars60 = build_problem(
+        dev, n_carbons=WIDE_CARBONS)
+    net60 = build_mass_action(rd60, sd60.n, device=dev)
+    u0_60 = make_u0(sd60, pars60)
+    prof60 = conds60[0].get_profile("T")
+    t0 = time.perf_counter()
+    _, u_mid60 = scipy_bdf_baseline(sd60, rd60, calc60, prof60, (0.0, TF / 2),
+                                    u0_60, RTOL, ATOL, best_of=1)
+    mid60_s = time.perf_counter() - t0
+    J60 = net60.to_dtype(torch.float32).jac_matmul(
+        torch.as_tensor(u_mid60, device=dev).float(),
+        calc60(prof60.X_start + prof60.rate * TF / 2).float())
+    J60B = J60.expand(BATCH, -1, -1).contiguous()
+    A181 = _newton_matrix(J60B, c)
+    n_w = WIDE_N
+    J512 = torch.as_tensor(rng.standard_normal((8, n_w, n_w)),
+                           device=dev).float().contiguous()
+    c512 = torch.full((8,), 0.025, dtype=torch.float64, device=dev)
+    A512 = _newton_matrix(J512, c512)
+    wide = {}
+    for n, A_n in ((sd60.n, A181), (n_w, A512)):
+        As_n = _equilibrate(A_n)[0].contiguous()
+        M_k = gj_inverse.schur_inverse(As_n)
+        torch.cuda.synchronize()
+        M_p = gj_inverse.schur_inverse_plain(As_n)
+        rel_s = float(((M_k - M_p).double().norm(dim=(1, 2))
+                       / M_p.double().norm(dim=(1, 2))).max())
+        M_r, _ = newton_schulz_refine(M_k, As_n)
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        res_s = float((eye - As_n.double() @ M_r.double()).abs().max())
+        if not (bool(torch.isfinite(M_k).all()) and rel_s <= 1e-5
+                and res_s <= 1e-3):
+            fail(f"schur_inverse n={n}: max rel Frobenius {rel_s:.3e}, max "
+                 f"|I - A M| after Newton-Schulz {res_s:.3e}")
+        ms_s = cuda_ms(lambda: gj_inverse.schur_inverse(As_n))
+        ms_sp = cuda_ms(lambda: gj_inverse.schur_inverse_plain(As_n), n=5,
+                        warm=1)
+        # Newton solve: M the main path's factor of the same matrices
+        M_f = _inv_factor(A_n).contiguous()
+        J_n = J60B if n == sd60.n else J512
+        c_n = c if n == sd60.n else c512
+        b_n = torch.as_tensor(rng.standard_normal((A_n.shape[0], n)), device=dev)
+        dy_k = fused_newton_solve(M_f, J_n, b_n, c_n)
+        torch.cuda.synchronize()
+        dy_p = fused_newton_solve_plain(M_f, J_n, b_n, c_n)
+        A_n64 = eye - c_n[:, None, None] * J_n.double()
+        _, lane_n, res_n = solve_checks(dy_k, dy_p, A_n64, b_n)
+        if not (lane_n <= 1e-5 and float(res_n.max()) <= 1e-4):
+            fail(f"newton_solve n={n}: per-lane max |d| / max|dy| "
+                 f"{lane_n:.3e}, max residual {float(res_n.max()):.3e}")
+        ms_n = cuda_ms(lambda: fused_newton_solve(M_f, J_n, b_n, c_n))
+        ms_np = cuda_ms(lambda: fused_newton_solve_plain(M_f, J_n, b_n, c_n))
+        wide[n] = dict(schur_ms=ms_s, schur_plain_ms=ms_sp, solve_ms=ms_n,
+                       solve_plain_ms=ms_np)
+        say(f"phase 4f n={n} B={A_n.shape[0]}: schur_inverse max rel "
+            f"Frobenius {rel_s:.3e} (<= 1e-5), max |I - A M| after "
+            f"Newton-Schulz {res_s:.3e} (<= 1e-3); kernel {ms_s:.4f} ms, plain "
+            f"{ms_sp:.4f} ms | newton_solve per-lane max |d| / max|dy| "
+            f"{lane_n:.3e} (<= 1e-5), max |b - A dy| / |b| "
+            f"{float(res_n.max()):.3e} (<= 1e-4); kernel {ms_n:.4f} ms, plain "
+            f"{ms_np:.4f} ms")
+    for kname, key in (("gj_inverse", "schur"), ("newton_solve", "solve")):
+        for n, w in wide.items():
+            kernels[kname][f"ms_n{n}"] = w[f"{key}_ms"]
+            kernels[kname][f"plain_ms_n{n}"] = w[f"{key}_plain_ms"]
     total = dict.fromkeys(KERNELS, 0)
 
     # ---- phase 5: the continuous sweep, warm-up then the counted run ----
@@ -439,7 +525,9 @@ def main() -> None:
         f"({sweep_s:.3f} s sweep, warm-up {warm_s:.3f} s, scipy-BDF one "
         f"profile {cpu_s:.3f} s on this host); steps max/median "
         f"{steps_max}/{steps_med}; {sweep_s * 1e3 / steps_max:.3f} ms/step; "
-        f"host syncs {syncs} ({syncs / steps_max:.2f}/step); attempts "
+        f"host syncs {syncs} ({syncs / steps_max:.2f}/step); rejected "
+        f"{int(ens.stats['n_rejected'].sum())}, factors "
+        f"{int(ens.stats['n_lu'].sum())} (all lanes); attempts "
         f"{ens.stats['attempts']} retry batch {ens.stats['retry_batch']}; "
         f"launches {launches} ({sum(launches.values()) / steps_max:.2f} of "
         f"these kernels/step)")
@@ -523,6 +611,101 @@ def main() -> None:
         f"host syncs {syncs} ({syncs / s7_max:.2f}/step); attempts "
         f"{ens7.stats['attempts']}; launches {launches} "
         f"({sum(launches.values()) / s7_max:.2f} of these kernels/step)")
+    for kname in KERNELS:
+        total[kname] += launches[kname]
+
+    # ---- phase 8: the nc=60 continuous sweep (multi-tile), B=64 ----
+    # warm-up: B=8 over the first two chunks (new widths for cuBLAS and the
+    # Schur blocks); then the counted sweep at full width and depth
+    t0 = time.perf_counter()
+    _, cpu60_final = scipy_bdf_baseline(sd60, rd60, calc60, prof60, pars60.tspan,
+                                        u0_60, RTOL, ATOL, best_of=1)
+    cpu60_s = time.perf_counter() - t0
+    sdw, rdw, calcw, condsw, parsw = build_problem(
+        dev, n_carbons=WIDE_CARBONS, batch=8, tf=2 * CHUNK)
+    t0 = time.perf_counter()
+    EnsembleProblem(VariableODESolve(parsw, condsw[0], calcw), sdw, rdw,
+                    rate_mode="continuous", device=dev).solve(
+                        conditions_list=condsw)
+    warm8_s = time.perf_counter() - t0
+    counts.reset()
+    problem8 = EnsembleProblem(VariableODESolve(pars60, conds60[0], calc60),
+                               sd60, rd60, rate_mode="continuous", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens8 = problem8.solve(conditions_list=conds60)
+    torch.cuda.synchronize()
+    sweep8_s = time.perf_counter() - t0
+    launches, syncs = counts.read()
+    refreshes = counts.bdf.jac_refreshes
+    # each lane evaluates J once at its start; the other evaluations are
+    # the lanes the refreshes served
+    refresh_lanes = int(ens8.stats["n_jev"].sum()) - BATCH
+    if not ens8.success:
+        fail(f"phase 8: not every lane DONE: {ens8.retcodes}")
+    if ens8.u.shape != (BATCH, 1 + int(TF / CHUNK), sd60.n) or not np.all(
+            np.isfinite(ens8.u)):
+        fail(f"phase 8: bad solution array {ens8.u.shape}")
+    err8 = final_err(ens8.u[0, -1], cpu60_final)
+    if err8 > 1e-6:
+        fail(f"phase 8: member 0 differs from scipy-BDF by {err8:.3e} (> 1e-6)")
+    require_launched(8, launches, ("fused_rhs", "gj_inverse", "grid_probe"))
+    st8 = ens8.stats
+    s8 = np.asarray(st8["n_steps"])
+    s8_max, s8_med = int(s8.max()), int(np.median(s8))
+    say(f"phase 8 nc={WIDE_CARBONS} continuous sweep: {rd60.nr} rxn / "
+        f"{sd60.n} sp, B={BATCH}, {problem8.n_chunks} async chunks, inv_gated "
+        f"+ fused RHS: all DONE; member 0 vs scipy-BDF max mole-fraction err "
+        f"{err8:.3e}; {sweep8_s * 1e3 / BATCH:.2f} ms/profile ({sweep8_s:.3f} "
+        f"s sweep, B=8 two-chunk warm-up {warm8_s:.3f} s, scipy-BDF one "
+        f"profile {cpu60_s:.3f} s and to mid-ramp {mid60_s:.3f} s on this "
+        f"host); steps max/median {s8_max}/{s8_med}; "
+        f"{sweep8_s * 1e3 / s8_max:.3f} ms/step; host syncs {syncs} "
+        f"({syncs / s8_max:.2f}/step); rejected {int(st8['n_rejected'].sum())}"
+        f", factors {int(st8['n_lu'].sum())}, J evaluations "
+        f"{int(st8['n_jev'].sum())} (all lanes); J refreshes {refreshes}, "
+        f"{refresh_lanes / max(refreshes, 1):.2f} lanes per refresh; attempts "
+        f"{st8['attempts']}; launches {launches} "
+        f"({sum(launches.values()) / s8_max:.2f} of these kernels/step)")
+    for kname in KERNELS:
+        total[kname] += launches[kname]
+
+    # ---- phase 9: solve_network at nc=60, member 0, inv_fused + dd ----
+    sd9, rd9, calc9, conds9, pars9 = build_problem(
+        dev, n_carbons=WIDE_CARBONS, linsolve="inv_fused",
+        rhs_contraction="dd")
+    counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out9 = solve_network(VariableODESolve(pars9, conds9[0], calc9), sd9, rd9,
+                         device=dev)
+    torch.cuda.synchronize()
+    single9_s = time.perf_counter() - t0
+    launches, syncs = counts.read()
+    sol9 = out9.sol
+    if not sol9.success:
+        fail(f"phase 9 solve_network: {sol9.retcode}")
+    if sol9.u.shape != (1 + int(TF / CHUNK), sd9.n) or not np.all(
+            np.isfinite(sol9.u)):
+        fail(f"phase 9 solve_network: bad solution array {sol9.u.shape}")
+    err9 = final_err(sol9.u[-1], cpu60_final)
+    if err9 > 1e-6:
+        fail(f"phase 9: solve_network differs from scipy-BDF by {err9:.3e} "
+             "(> 1e-6)")
+    require_launched(9, launches, ("dd_contract", "newton_solve", "gj_inverse",
+                                   "grid_probe"))
+    if launches["fused_rhs"]:
+        fail(f"phase 9 ran the fused RHS with rhs_contraction='dd': {launches}")
+    st9 = sol9.stats
+    say(f"phase 9 solve_network nc={WIDE_CARBONS}: {rd9.nr} rxn / {sd9.n} sp, "
+        f"chunkwise {st9['n_chunks']} x {CHUNK} s, continuous, inv_fused + dd:"
+        f" DONE; vs scipy-BDF max mole-fraction err {err9:.3e}; "
+        f"{single9_s * 1e3:.2f} ms/profile; steps {st9['n_steps']} (accepted "
+        f"{st9['n_accepted']}, rejected {st9['n_rejected']}, factors "
+        f"{st9['n_lu']}); {single9_s * 1e3 / st9['n_steps']:.3f} ms/step; "
+        f"host syncs {syncs} ({syncs / st9['n_steps']:.2f}/step); launches "
+        f"{launches} ({sum(launches.values()) / st9['n_steps']:.2f} of these "
+        f"kernels/step)")
     for kname in KERNELS:
         total[kname] += launches[kname]
 

@@ -11,8 +11,9 @@ same-class profiles at once from a (B, p) parameter tensor and (B,) times;
 the continuous rate mode of :mod:`kinetica_tpu_torch.parallel.batching`
 builds k(T(t, theta)) this way.
 
-Ported: static, null/linear direct and null/linear gradient profiles. The
-double-ramp and sawtooth profiles are not ported yet (ROADMAP.md).
+Ported: static, null/linear direct, null/linear gradient, the double-ramp
+gradient profile (blended or not) and the sawtooth direct profile: every
+profile class of the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +28,13 @@ def _as_time(t) -> torch.Tensor:
     if isinstance(t, torch.Tensor):
         return t.to(torch.float64)
     return torch.as_tensor(np.asarray(t, dtype=np.float64))
+
+
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``x`` clipped to [lo, hi]; the bounds are floats or tensors."""
+    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 class AbstractProfile:
@@ -262,6 +270,152 @@ class LinearGradientProfile(GradientProfile):
         t = _as_time(t)
         return torch.where(t <= self.t_end, self.X_start + self.rate * t,
                            self.X_end + torch.zeros_like(t))
+
+
+class DoubleRampGradientProfile(GradientProfile):
+    """Two ramps with three plateaus and optional gradient blending
+    (gradient_variable.jl:181-309)::
+
+                      ------   X_mid
+              rate1  /      \\
+                    /        \\  rate2
+        X_start ----          \\
+                               ----- X_end
+
+    With ``t_blend`` the gradient ramps linearly over +-t_blend around each
+    corner, and ``value`` is its exact antiderivative (quadratic ease-in
+    and ease-out). ``blended`` selects the form, so members of one batch
+    must agree on it (``static_attrs``).
+    """
+
+    theta_fields = ("X_start", "X_mid", "X_end", "rate1", "rate2",
+                    "t_startr1", "t_endr1", "t_startr2", "t_endr2", "t_blend")
+    static_attrs = ("blended",)
+
+    def __init__(self, X_start: float, t_start_plateau: float, rate1: float,
+                 X_mid: float, t_mid_plateau: float, rate2: float, X_end: float,
+                 t_end_plateau: float, t_blend: float | None = None):
+        super().__init__()
+        if ((X_mid > X_start and rate1 < 0) or (X_mid < X_start and rate1 > 0)
+                or (X_end > X_mid and rate2 < 0) or (X_end < X_mid and rate2 > 0)):
+            raise ValueError("Impossible condition ramp defined. "
+                             "Check heating rates have the correct signs.")
+        self.X_start, self.X_mid, self.X_end = (float(X_start), float(X_mid),
+                                                float(X_end))
+        self.rate1, self.rate2 = float(rate1), float(rate2)
+        self.t_start_plateau = float(t_start_plateau)
+        self.t_mid_plateau = float(t_mid_plateau)
+        self.t_end_plateau = float(t_end_plateau)
+        self.t_startr1 = float(t_start_plateau)
+        self.t_endr1 = self.t_startr1 + (X_mid - X_start) / rate1
+        self.t_startr2 = self.t_endr1 + t_mid_plateau
+        self.t_endr2 = self.t_startr2 + (X_end - X_mid) / rate2
+        self.t_end = self.t_endr2 + t_end_plateau
+        self.t_blend = 0.0 if t_blend is None else float(t_blend)
+        self.blended = t_blend is not None
+        if not self.blended:
+            self.tstops = np.array([self.t_startr1, self.t_endr1,
+                                    self.t_startr2, self.t_endr2, self.t_end])
+        else:
+            b = self.t_blend
+            self.tstops = np.array([
+                self.t_startr1 - b, self.t_startr1 + b,
+                self.t_endr1 - b, self.t_endr1 + b,
+                self.t_startr2 - b, self.t_startr2 + b,
+                self.t_endr2 - b, self.t_endr2 + b,
+                self.t_end])
+
+    def grad(self, t):
+        t = _as_time(t)
+        ts1, te1 = self.t_startr1, self.t_endr1
+        ts2, te2 = self.t_startr2, self.t_endr2
+        r1, r2 = self.rate1, self.rate2
+        if not self.blended:
+            return (((t >= ts1) & (t < te1)) * r1
+                    + ((t >= ts2) & (t < te2)) * r2)
+        b = self.t_blend
+        return (
+            ((t >= ts1 - b) & (t < ts1 + b)) * (r1 * (t - ts1 - b) / (2 * b) + r1)
+            + ((t >= ts1 + b) & (t < te1 - b)) * r1
+            + ((t >= te1 - b) & (t < te1 + b)) * (-r1 * (t - te1 - b) / (2 * b))
+            + ((t >= ts2 - b) & (t < ts2 + b)) * (r2 * (t - ts2 - b) / (2 * b) + r2)
+            + ((t >= ts2 + b) & (t < te2 - b)) * r2
+            + ((t >= te2 - b) & (t < te2 + b)) * (-r2 * (t - te2 - b) / (2 * b)))
+
+    def value(self, t):
+        t = _as_time(t)
+        zero = torch.zeros_like(t)
+        ts1, te1 = self.t_startr1, self.t_endr1
+        ts2, te2 = self.t_startr2, self.t_endr2
+        r1, r2 = self.rate1, self.rate2
+        X0, Xm, Xe = self.X_start, self.X_mid, self.X_end
+        if not self.blended:
+            return torch.where(
+                t < ts1, X0 + zero,
+                torch.where(t < te1, X0 + r1 * (t - ts1),
+                            torch.where(t < ts2, Xm + zero,
+                                        torch.where(t < te2, Xm + r2 * (t - ts2),
+                                                    Xe + zero))))
+        b = self.t_blend
+
+        def ramp_value(t_on, t_off, X_lo, rate):
+            tau_on = _clip(t - (t_on - b), 0.0, 2 * b)       # rising blend
+            tau_mid = _clip(t - (t_on + b), 0.0, (t_off - b) - (t_on + b))
+            tau_off = _clip(t - (t_off - b), 0.0, 2 * b)     # falling blend
+            return (X_lo + rate * tau_on ** 2 / (4 * b) + rate * tau_mid
+                    + rate * (tau_off - tau_off ** 2 / (4 * b)))
+
+        return torch.where(t < ts2 - b, ramp_value(ts1, te1, X0, r1),
+                           ramp_value(ts2, te2, Xm, r2))
+
+    def create_discrete_tstops(self, ts_update: float) -> None:
+        """Stops only where the profile varies (gradient_variable.jl:301-309)."""
+        if ts_update > self.t_end:
+            raise ValueError("Error defining tstops, `ts_update` is too large.")
+        b = self.t_blend
+        self.tstops = np.concatenate([
+            [0.0],
+            create_savepoints(self.t_startr1 - b, self.t_endr1 + b, ts_update),
+            create_savepoints(self.t_startr2 - b, self.t_endr2 + b, ts_update),
+            [self.t_end],
+        ])
+
+
+class SawtoothDirectProfile(DirectProfile):
+    """Periodic sawtooth ramp about ``X_mid``: rises from X_mid - amplitude
+    to X_mid + amplitude over ``period`` and resets, ``n_periods`` times;
+    ``X_start`` before t = 0, the top value from ``t_end`` on."""
+
+    theta_fields = ("amplitude", "period", "X_mid", "X_start", "t_end")
+
+    def __init__(self, amplitude: float, period: float, X_mid: float,
+                 n_periods: int = 1, X_start: float | None = None):
+        super().__init__()
+        self.amplitude = float(amplitude)
+        self.period = float(period)
+        self.X_mid = float(X_mid)
+        self.n_periods = int(n_periods)
+        self.X_start = (self.X_mid - self.amplitude if X_start is None
+                        else float(X_start))
+        self.t_end = self.period * self.n_periods
+        # discontinuities at every period boundary
+        self.tstops = np.arange(1, self.n_periods + 1) * self.period
+
+    def f(self, t):
+        t = _as_time(t)
+        zero = torch.zeros_like(t)
+        # the clipped time is >= 0, where fmod (exact) is the floor modulo
+        phase = torch.fmod(_clip(t, 0.0, self.t_end), self.period) / self.period
+        val = (self.X_mid - self.amplitude) + 2 * self.amplitude * phase
+        return torch.where(t >= self.t_end, self.X_mid + self.amplitude + zero,
+                           torch.where(t <= 0.0, self.X_start + zero, val))
+
+    def create_discrete_tstops(self, ts_update: float) -> None:
+        if ts_update > self.t_end:
+            raise ValueError("Error defining tstops, `ts_update` is too large.")
+        self.tstops = np.unique(np.concatenate([
+            create_savepoints(0.0, self.t_end, ts_update),
+            np.arange(1, self.n_periods + 1) * self.period]))
 
 
 # Trait helpers mirroring the reference's isstatic/isvariable/etc.

@@ -15,24 +15,27 @@
 //
 // What bounds it on an H100: the dependent chain of up to 2 n_sweeps + 1
 // matvecs of one lane, each a few microseconds of barrier-separated work.
-// Per lane M and J are 2 n^2 floats (42.6 KB at n = 73), read from global
-// memory through the L1 cache up to 2 n_sweeps + 1 times; a B=64 call
-// moves under 3 MB from device memory.
+// Per lane M and J are 2 n^2 floats (42.6 KB at n = 73, 262 KB at n = 181,
+// 2 MB at n = 512), read from global memory up to 2 n_sweeps + 1 times; a
+// B=64 call moves under 3 MB from device memory at n = 73 and about 17 MB
+// at n = 181 (each pass of it from the L2 cache).
 //
 // Design: one block per lane, so the lane's stop test needs no host read
 // and no other lane. M and J stay in global memory; the vectors (b, dy in
 // f64, the matvec input and output in f32) live in shared memory. Each
 // warp owns rows i, i + 8, ...; its 32 threads sum strided columns and a
 // butterfly shuffle finishes the row, so every sum has a fixed order and
-// the result is the same from run to run. n is at most 128, the Gauss-
-// Jordan kernel's cap, which sizes the shared vectors statically.
+// the result is the same from run to run. n is at most 512, the widest
+// system the block-Schur inverse factors; that sizes the shared vectors
+// statically (2 x 512 doubles + 2 x 512 floats = 12 KB, under the 48 KB a
+// block may hold statically), so no launch needs a dynamic size.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxN = 128;
+constexpr int kMaxN = 512;
 
 // out[i] = sum_j A[i, j] v[j] for the (n, n) row-major f32 matrix A.
 __device__ __forceinline__ void matvec(const float* __restrict__ A,

@@ -13,8 +13,10 @@ batched column loop in PyTorch. ``torch.linalg.inv`` is not a stand-in:
 it has no pivot clamp.
 
 The kernel takes n <= 128 (one block holds the augmented [A | I] block in
-shared memory). Wider systems need the block-Schur composition of the
-reference (``pallas_linalg.py::schur_inverse``), which is not ported yet.
+shared memory). Wider systems, up to 512, go through :func:`schur_inverse`,
+the reference's block-Schur composition (``pallas_linalg.py::
+schur_inverse``): Gauss-Jordan kernel launches on the diagonal blocks, f32
+matrix products for the coupling terms.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from .cuda_build import check_launch, load_library
 
 MAX_N = 128
+MAX_SCHUR_N = 512
 PIVOT_FLOOR = 1e-30
 
 # kernel launches since the last reset (the plain path never counts)
@@ -38,9 +41,9 @@ def _check(A: torch.Tensor) -> None:
         raise ValueError(f"gj_inverse: A must be (B, n, n), got {tuple(A.shape)}")
     if A.shape[1] > MAX_N:
         raise ValueError(
-            f"gj_inverse: n = {A.shape[1]} > {MAX_N}; wider systems need the "
-            "block-Schur composition (ROADMAP.md, Queue 2: schur_inverse), "
-            "which is not ported yet")
+            f"gj_inverse: n = {A.shape[1]} > {MAX_N}; wider systems (up to "
+            f"{MAX_SCHUR_N}) go through the block-Schur composition, "
+            "schur_inverse")
     if not A.is_contiguous():
         raise ValueError("gj_inverse: A must be contiguous")
 
@@ -91,6 +94,61 @@ def gj_inverse(A: torch.Tensor) -> torch.Tensor:
     check_launch(err, "gj_inverse")
     launches += 1
     return out
+
+
+def _schur(A: torch.Tensor, inv) -> torch.Tensor:
+    n = A.shape[-1]
+    if n <= MAX_N:
+        return inv(A.contiguous())
+    n1 = MAX_N * max(1, (n // 2) // MAX_N)
+    A11, A12 = A[:, :n1, :n1], A[:, :n1, n1:]
+    A21, A22 = A[:, n1:, :n1], A[:, n1:, n1:]
+    I11 = _schur(A11, inv)
+    T = A21 @ I11
+    S = A22 - T @ A12
+    Sinv = _schur(S, inv)
+    M12 = -((I11 @ A12) @ Sinv)
+    M21 = -(Sinv @ T)
+    M11 = I11 - M12 @ T
+    return torch.cat([torch.cat([M11, M12], dim=2),
+                      torch.cat([M21, Sinv], dim=2)], dim=1)
+
+
+def _check_schur(A: torch.Tensor) -> None:
+    if A.dtype != torch.float32:
+        raise TypeError(f"schur_inverse: A must be float32, got {A.dtype}")
+    if A.ndim != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(
+            f"schur_inverse: A must be (B, n, n), got {tuple(A.shape)}")
+    if A.shape[1] > MAX_SCHUR_N:
+        raise ValueError(f"schur_inverse: n = {A.shape[1]} > {MAX_SCHUR_N}")
+
+
+def schur_inverse(A: torch.Tensor) -> torch.Tensor:
+    """(B, n, n) f32 -> (B, n, n) f32 inverses, n <= 512, by 2x2 blocks.
+
+    With A = [[A11, A12], [A21, A22]], A11 of n1 = 128 max(1, (n // 2) //
+    128) rows, and S = A22 - A21 A11^-1 A12::
+
+        A^-1 = [[A11^-1 - M12 T, M12], [M21, S^-1]],
+        T = A21 A11^-1, M12 = -(A11^-1 A12) S^-1, M21 = -S^-1 T,
+
+    recursively, so every diagonal block that reaches :func:`gj_inverse`
+    is at most 128 wide (181 -> 128 + 53, 512 -> (128 + 128) + (128 +
+    128)). The coupling products are plain f32 matmuls (TF32 is off, the
+    reference's ``Precision.HIGHEST``). Pivoting stays inside the diagonal
+    blocks, so this is no general pivoted inverse: the Newton factor
+    equilibrates A first and refines the result by Newton-Schulz. At n <=
+    128 it is :func:`gj_inverse` itself.
+    """
+    _check_schur(A)
+    return _schur(A, gj_inverse)
+
+
+def schur_inverse_plain(A: torch.Tensor) -> torch.Tensor:
+    """The same composition over :func:`gj_inverse_plain` (any device)."""
+    _check_schur(A)
+    return _schur(A, gj_inverse_plain)
 
 
 def _library() -> ctypes.CDLL:

@@ -6,7 +6,8 @@ form:
 
 * the Newton matrix A = I - c J is built in J's dtype (f32 on the main
   path), equilibrated, inverted in f32 by the Gauss-Jordan kernel
-  (:mod:`kinetica_tpu_torch.ops.gj_inverse`), refined by Newton-Schulz and
+  (:mod:`kinetica_tpu_torch.ops.gj_inverse`; above 128 species by its
+  block-Schur composition, up to 512), refined by Newton-Schulz and
   stored with its scales folded in;
 * "inv" and "inv_gated" solve with one f32 matvec through that inverse
   plus exactly two refinement sweeps against native f64 residuals;
@@ -29,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import host_sync
-from .gj_inverse import gj_inverse
+from .gj_inverse import MAX_SCHUR_N, schur_inverse
 from .newton_solve import fused_newton_solve
 
 NS_TOL = 3e-4          # Newton-Schulz factor tolerance (max |I - A M|)
@@ -42,12 +43,20 @@ INV_METHODS = ("inv", "inv_gated", "inv_fused")
 EPS32 = 1.2e-7
 
 
-def resolve_linsolve(method: str) -> str:
-    """The port's accelerator choice for "auto" on every device: "inv_gated"."""
+def resolve_linsolve(method: str, ns: int) -> str:
+    """The linear solve for ``ns`` species.
+
+    "auto" is "inv_gated" up to 512 species on every device (the port's
+    accelerator choice) and the f64 "lu" above, as the reference. An
+    explicit inverse method above 512 raises: the inverses stop there.
+    """
     if method == "auto":
-        return "inv_gated"
+        return "inv_gated" if ns <= MAX_SCHUR_N else "lu"
     if method not in INV_METHODS + ("lu",):
         raise ValueError(f"unknown linsolve {method!r}")
+    if method in INV_METHODS and ns > MAX_SCHUR_N:
+        raise ValueError(f"linsolve {method!r} supports up to {MAX_SCHUR_N} "
+                         f"species, got {ns}; use 'lu' or 'auto'")
     return method
 
 
@@ -143,9 +152,10 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
 
 
 def _inv_factor(A: torch.Tensor) -> torch.Tensor:
-    """Equilibrate -> Gauss-Jordan kernel -> Newton-Schulz -> fold scales."""
+    """Equilibrate -> Gauss-Jordan kernel (block-Schur above 128 species)
+    -> Newton-Schulz -> fold scales."""
     As, dr, dc = _equilibrate(A)
-    minv = gj_inverse(As.contiguous())
+    minv = schur_inverse(As.contiguous())
     minv, _ = newton_schulz_refine(minv, As)
     return dc[:, :, None] * minv * dr[:, None, :]
 
@@ -158,9 +168,13 @@ def newton_factor(J: torch.Tensor, c: torch.Tensor, method: str = "inv_gated",
     ``method`` "inv_gated" (the main path), "inv" or "inv_fused": the
     equilibrated f32 explicit inverse with its scales folded in. With
     ``need`` given, only the lanes whose flag is set are rebuilt; the
-    others keep ``prev.lu`` (zeros without ``prev``). A lane's factor does
-    not depend on which other lanes are rebuilt with it, so the three
-    methods give every lane the same factor. "lu": f64 LU factors of A
+    others keep ``prev.lu`` (zeros without ``prev``). A lane's factor
+    depends on which other lanes are rebuilt with it only through f32
+    rounding: the Newton-Schulz sweeps, and above 128 species the Schur
+    coupling products, are cuBLAS GEMMs whose kernel may change with the
+    sub-batch size (on an H100 a one-lane f32 GEMM rounded 7.2e-7
+    relative away from the batched one). The three methods build the same
+    factor. "lu": f64 LU factors of A
     (``torch.linalg``), an explicit cross-check option only.
     """
     B, n, _ = J.shape

@@ -16,6 +16,7 @@ test compares f32 norms, so a lane at the 1e-4 boundary may take one
 sweep more in the kernel than in :func:`fused_newton_solve_plain`, which
 sums in another order; both then solve to the same bounds.
 
+The kernel takes n <= 512, the widest system the inverse factors take.
 The JVP rule of the reference (``_fused_solve_jvp``) is not ported.
 On a CUDA tensor :func:`fused_newton_solve` launches the kernel or
 raises; on a CPU tensor it runs :func:`fused_newton_solve_plain`.
@@ -29,7 +30,7 @@ import torch
 from .cuda_build import check_launch, load_library
 from .grid_probe import ensure_grid_supported
 
-MAX_N = 128
+MAX_N = 512
 STOP_RTOL = 1e-4
 NORM_FLOOR = 1e-30
 

@@ -33,6 +33,9 @@ from ..solving.solutions import EnsembleSolution, retcode_from_status
 from ..solving.solve_utils import calculate_discrete_rates, make_u0
 from ..utils.logging import logger
 
+# per-lane solver counters an ensemble solution reports in its ``stats``
+LANE_STATS = ("n_steps", "n_rejected", "n_jev", "n_lu")
+
 
 def build_condition_sweep(conditions_list: list[ConditionSet], calculator,
                           nr: int, pars) -> tuple[np.ndarray, np.ndarray]:
@@ -178,7 +181,8 @@ class EnsembleProblem:
         self.pars = pars
 
     def _run_batch(self, u0s, payload, stops_rows, abstol, reltol):
-        """One batched async run -> numpy (statuses, ys (B, chunks, m, ns), steps)."""
+        """One batched async run -> numpy (statuses, ys (B, chunks, m, ns),
+        per-lane counters ``LANE_STATS``)."""
         pars = self.pars
         f64 = dict(dtype=torch.float64, device=self.device)
         res = bdf.bdf_solve(
@@ -193,7 +197,7 @@ class EnsembleProblem:
             args=payload, chunks=self.n_chunks,
             chunk_offsets=torch.arange(self.n_chunks, **f64) * self.chunkstep)
         return (res.status.cpu().numpy(), res.ys.cpu().numpy(),
-                res.n_steps.cpu().numpy())
+                {k: getattr(res, k).cpu().numpy() for k in LANE_STATS})
 
     def solve(self, conditions_list: list[ConditionSet] | None = None,
               u0s: np.ndarray | None = None,
@@ -277,21 +281,21 @@ class EnsembleProblem:
         while True:
             attempts += 1
             if statuses is None:
-                statuses, ys, steps_v = self._run_batch(
+                statuses, ys, lane_stats = self._run_batch(
                     u0s_t, payload, stops_rows, abstol_v, reltol_v)
-                statuses, ys, steps_v = (np.array(statuses), np.array(ys),
-                                         np.array(steps_v))
+                statuses, ys = np.array(statuses), np.array(ys)
             else:
                 lanes = np.flatnonzero(statuses != bdf.DONE)
                 Br = self._retry_batch_size(lanes.size, B)
                 idx = np.concatenate(
                     [lanes, np.full(Br - lanes.size, lanes[0], lanes.dtype)])
                 self.last_retry_batch = int(Br)
-                new_st, new_ys, new_steps = self._run_batch(
+                new_st, new_ys, new_stats = self._run_batch(
                     *self._gather_lanes(u0s_t, payload, stops_rows, idx),
                     abstol_v[idx], reltol_v[idx])
                 statuses[lanes] = new_st[:lanes.size]
-                steps_v[lanes] = new_steps[:lanes.size]
+                for k, v in lane_stats.items():
+                    v[lanes] = new_stats[k][:lanes.size]
                 ys[lanes] = new_ys[:lanes.size]
             failed = statuses != bdf.DONE
             if not failed.any() or not pars.adaptive_tols:
@@ -335,7 +339,7 @@ class EnsembleProblem:
                             "attempts": attempts,
                             "retry_batch": self.last_retry_batch,
                             "abstol": abstol_v, "reltol": reltol_v,
-                            "n_steps": steps_v})
+                            **lane_stats})
 
     def _gather_lanes(self, u0s_t, payload, stops_rows, idx):
         """The inputs of the lanes ``idx`` (a padded numpy index vector)."""

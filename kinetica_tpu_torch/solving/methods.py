@@ -19,8 +19,9 @@ batch of one lane of the batched BDF (:mod:`kinetica_tpu_torch.ops.bdf`).
 The port resolves the reference's "auto" choices to its accelerator
 algorithm on every device: the RHS goes through the fused kernel
 (:mod:`kinetica_tpu_torch.ops.fused_rhs`, its plain version on CPU), the
-Newton Jacobian is f32 and the Newton factor "inv_gated". Not ported: the
-``rk45`` solver (``pars.solver="rk45"`` raises ``ValueError``).
+Newton Jacobian is f32 and the Newton factor "inv_gated" up to 512
+species ("lu" above, as the reference). Not ported: the ``rk45`` solver
+(``pars.solver="rk45"`` raises ``ValueError``).
 """
 from __future__ import annotations
 

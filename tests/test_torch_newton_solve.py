@@ -54,9 +54,14 @@ def _lane_err(x, ref):
 
 
 @pytest.mark.parametrize("n,B,spike,seed", [(12, 5, False, 3), (6, 8, False, 9),
-                                            (12, 4, True, 4)])
+                                            (12, 4, True, 4), (181, 3, False, 5),
+                                            (181, 2, True, 8), (512, 2, False, 6)])
 def test_plain_matches_pallas_interpret(n, B, spike, seed):
-    M, J, b, c, A = _mk(n=n, B=B, seed=seed, cond_spike=spike)
+    """Up to the kernel's widest system, n = 512 (the multi-tile widths
+    raised before the kernel took n > 128); c shrinks as 1 / sqrt(n) from
+    n = 12 on, so c J keeps the spectral radius of the n = 12 systems."""
+    c0 = 0.05 * min(1.0, np.sqrt(12 / n))
+    M, J, b, c, A = _mk(n=n, B=B, c0=c0, seed=seed, cond_spike=spike)
     dy = _port_solve(M, J, b, c)
     dy_ref = _jax_solve(M, J, b, c)
     assert np.all(_lane_err(dy, dy_ref) <= 3e-6)
@@ -136,8 +141,8 @@ def test_guard_rejects_bad_inputs(what):
         "b_f32": (M, J, b.float(), c),
         "c_shape": (M, J, b, c[:2]),
         "J_shape": (M, J[:, :5, :5].contiguous(), b, c),
-        "wide": (torch.zeros(1, 129, 129), torch.zeros(1, 129, 129),
-                 torch.zeros(1, 129, dtype=torch.float64),
+        "wide": (torch.zeros(1, 513, 513), torch.zeros(1, 513, 513),
+                 torch.zeros(1, 513, dtype=torch.float64),
                  torch.zeros(1, dtype=torch.float64)),
         "sweeps": (M, J, b, c),
         "noncontig": (M.transpose(1, 2), J, b, c),
