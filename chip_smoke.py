@@ -27,6 +27,20 @@ kernel of a path must have launched during that path's run (the counts
 are set to 0, and the once-per-process grid probe re-armed, just before
 it).
 
+Phases 3-4 also hold the kernels on their edge cases
+(``kinetica_tpu_torch.testing.kernel_cases``: Gauss-Jordan at n = 1, 33,
+53, 73, 127, 128 with a pivot tie, a NaN column and a singular member;
+the fused RHS at B = 1 and 64 on a network with an empty and a 700-entry
+species row), and time every kernel three ways
+(``kinetica_tpu_torch.testing.device_timing``): ``ms`` (one call between
+CUDA events, host work included), ``graph_ms`` (device only: 20 calls in
+one CUDA graph, replayed) and ``library_ms`` (the one PyTorch call that
+computes the same function, where there is one: timed as ``graph_ms``,
+or over 20 calls back to back where a graph cannot capture it), beside
+``bound_ms`` (the bytes or the operations of the work at the H100's
+peak rates). The ``kernels`` line also gives each kernel's launches per
+step on each path.
+
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA GPU. Exits non-zero, printing no result line, when there is
 no GPU, when the package is not next to this script, or when any phase
@@ -46,6 +60,9 @@ WIDE_CARBONS, WIDE_N = 60, 512      # the multi-tile network; the widest inverse
 RTOL, ATOL, K_MAX = 1e-8, 1e-10, 1e12
 KERNELS = ("fused_rhs", "gj_inverse", "dd_contract", "newton_solve",
            "grid_probe")
+# the yardstick of the inverses: a CUDA graph cannot capture it (it
+# synchronises inside), so it is timed over 20 calls back to back
+LIBRARY_INV = "torch.linalg.inv_ex, loop_ms"
 
 
 def fail(msg: str) -> None:
@@ -55,24 +72,6 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, n: int = 25, warm: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events, after warm-up)."""
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def import_port():
@@ -170,6 +169,11 @@ def main() -> None:
     from kinetica_tpu_torch.solving.solve_utils import make_u0
     from kinetica_tpu_torch.testing.cpu_reference import (
         scipy_bdf_baseline, scipy_bdf_discrete_baseline)
+    from kinetica_tpu_torch.testing.device_timing import (
+        bound, dd_work, graph_ms, inverse_work, loop_ms, rhs_work, solve_work)
+    from kinetica_tpu_torch.testing.device_timing import event_ms as cuda_ms
+    from kinetica_tpu_torch.testing.kernel_cases import (
+        GJ_EDGE_WIDTHS, gj_edge_cases, rhs_edge_network, rhs_rel_err)
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -213,26 +217,48 @@ def main() -> None:
     du_k = fused(u_aug, k)
     torch.cuda.synchronize()
     du_p = fused.plain(u_aug, k)
-    r = k * u_aug[:, net.reac_slots].prod(dim=-1)
-    bound = r.abs() @ net.N.abs()
-    err1 = (du_k - du_p).abs()
-    max_err1 = float(err1.max())
-    rel1 = float((err1 / bound.clamp_min(1e-300)).max())
+    max_err1 = float((du_k - du_p).abs().max())
+    rel1 = rhs_rel_err(fused, u_aug, k, du_k)
     if not rel1 <= 1e-12:
         fail(f"fused_rhs disagrees with its plain version: max |d| "
              f"{max_err1:.3e}, max |d| / sum|N r| {rel1:.3e}")
+    # edge cases: an empty and a 700-entry species row, B = 1 and 64; the
+    # contraction kernel must equal the fused RHS bit for bit there too
+    N_e, slots_e, empty_e, _ = rhs_edge_network()
+    fused_e = FusedMassActionRHS(N_e, slots_e, dev)
+    dd_e = DDContraction(N_e, dev)
+    edge1 = {}
+    for b in (1, BATCH):
+        ue = 10.0 ** rng.uniform(-14, 0, (b, fused_e.ns))
+        ue_aug = augment(torch.as_tensor(ue, device=dev), net.delta).contiguous()
+        ke = torch.as_tensor(10.0 ** rng.uniform(-3, 12, (b, fused_e.nr)),
+                             device=dev)
+        du_e = fused_e(ue_aug, ke)
+        re = (ke * ue_aug[:, fused_e._slots64].prod(dim=-1)).contiguous()
+        same = bool(torch.equal(dd_e(re), du_e))
+        edge1[b] = rhs_rel_err(fused_e, ue_aug, ke, du_e)
+        if not (edge1[b] <= 1e-12 and same
+                and bool((du_e[:, empty_e] == 0).all())):
+            fail(f"fused_rhs edge network B={b}: max |d| / sum|N r| "
+                 f"{edge1[b]:.3e}, dd_contract equal {same}")
     ms1 = cuda_ms(lambda: fused(u_aug, k))
+    g1 = graph_ms(lambda: fused(u_aug, k))
     ms1p = cuda_ms(lambda: fused.plain(u_aug, k))
+    b1, by1 = bound(*rhs_work(fused, BATCH), "f64")
     say(f"phase 3 fused_rhs: B={BATCH} nr={rd.nr} ns={sd.n}: max |d| "
         f"{max_err1:.3e} (max |du| {float(du_p.abs().max()):.3e}), max |d| / "
-        f"sum|N r| {rel1:.3e} (<= 1e-12); kernel {ms1:.4f} ms, plain "
-        f"{ms1p:.4f} ms")
+        f"sum|N r| {rel1:.3e} (<= 1e-12); edge network (empty row, 700-entry "
+        f"row) B=1 {edge1[1]:.3e}, B={BATCH} {edge1[BATCH]:.3e}, dd_contract "
+        f"equal; kernel {ms1:.4f} ms, graph {g1:.5f} ms, plain {ms1p:.4f} ms, "
+        f"bound {b1:.5f} ms ({by1}), no single library call")
     kernels["fused_rhs"] = {
         "name": "fused_rhs", "route": "cuda",
         "source": "kinetica_tpu_torch/csrc/fused_rhs.cu",
         "replaces": "kinetica_tpu/ops/pallas_matmul.py:384",
         "max_abs_err": max_err1, "max_rel_err": rel1, "ms": ms1,
-        "plain_ms": ms1p}
+        "graph_ms": g1, "plain_ms": ms1p, "bound_ms": b1, "bound_by": by1,
+        "library_ms": None, "library_call": "no single call (gather, "
+        "product and contraction)"}
 
     # ---- phase 4: Gauss-Jordan kernel vs its plain version, B=64 / n=73 ----
     # Newton matrices I - cJ from the nc=24 f32 Jacobian at the mid-ramp
@@ -260,28 +286,75 @@ def main() -> None:
     resid = (torch.eye(sd.n, dtype=torch.float64, device=dev)
              - As.double() @ M_k.double()).abs().amax(dim=(1, 2))[:-1]
     max_err2 = float(d[:-1].abs().max())                     # non-singular
+    # the kernel rounds as the plain version does: count what differs
+    n_diff2 = int((M_k != M_p).sum())
     if not bool(torch.isfinite(M_k).all()):
         fail("gj_inverse gave non-finite values")
     if float(rel.max()) > 1e-5 or float(resid.max()) > 1e-3:
         fail(f"gj_inverse: max relative Frobenius {float(rel.max()):.3e}, "
              f"max |I - A M| {float(resid.max()):.3e}")
+    # edge cases at every tile edge: a pivot tie, a NaN column (the member
+    # all NaN, no other touched), a singular member (finite)
+    edge2 = {}
+    for n in GJ_EDGE_WIDTHS:
+        A_np, names = gj_edge_cases(n, seed=n)
+        A_e = torch.as_tensor(A_np, device=dev)
+        M_e = gj_inverse.gj_inverse(A_e)
+        torch.cuda.synchronize()
+        M_ep = gj_inverse.gj_inverse_plain(A_e)
+        nan = names.index("nan_column")
+        keep = [i for i in range(len(names)) if i != nan]
+        d_e = (M_e[keep].double() - M_ep[keep].double())
+        edge2[n] = float((d_e.norm(dim=(1, 2))
+                          / M_ep[keep].double().norm(dim=(1, 2))).max())
+        n_diff2 += int((M_e[keep] != M_ep[keep]).sum())
+        eye_e = torch.eye(n, dtype=torch.float64, device=dev)
+        res_e = max(float((eye_e - A_e[i].double() @ M_e[i].double()).abs().max())
+                    for i in range(len(names)) if names[i] in ("random", "tie"))
+        if not (edge2[n] <= 1e-5 and res_e <= 1e-3
+                and bool(torch.isfinite(M_e[keep]).all())
+                and bool(torch.isnan(M_e[nan]).all())):
+            fail(f"gj_inverse edge cases n={n} ({names}): max rel Frobenius "
+                 f"{edge2[n]:.3e}, max |I - A M| {res_e:.3e}, finite "
+                 f"{bool(torch.isfinite(M_e[keep]).all())}, NaN member all "
+                 f"NaN {bool(torch.isnan(M_e[nan]).all())}")
     ms2 = cuda_ms(lambda: gj_inverse.gj_inverse(As))
+    g2 = graph_ms(lambda: gj_inverse.gj_inverse(As))
     ms2p = cuda_ms(lambda: gj_inverse.gj_inverse_plain(As), n=5, warm=1)
+    lib2 = loop_ms(lambda: torch.linalg.inv_ex(As)[0])
+    b2, by2 = bound(*inverse_work(BATCH, sd.n), "f32")
+    A128 = (torch.eye(128, device=dev) + torch.as_tensor(
+        rng.standard_normal((BATCH, 128, 128)) / (2 * 128 ** 0.5),
+        device=dev).float()).contiguous()
+    g2_128 = graph_ms(lambda: gj_inverse.gj_inverse(A128))
+    lib2_128 = loop_ms(lambda: torch.linalg.inv_ex(A128)[0])
+    b2_128, by2_128 = bound(*inverse_work(BATCH, 128), "f32")
     say(f"phase 4 gj_inverse: B={BATCH} n={sd.n}: max rel Frobenius "
         f"{float(rel.max()):.3e} (<= 1e-5), max |d| {max_err2:.3e} (max |M| "
         f"{float(M_p[:-1].abs().max()):.3e}, non-singular), max |I - A M| "
         f"{float(resid.max()):.3e} (<= 1e-3, non-singular), singular member "
-        f"finite; kernel {ms2:.4f} ms, plain {ms2p:.4f} ms")
+        f"finite; edge cases (tie, NaN column, singular) max rel Frobenius "
+        + ", ".join(f"n={n} {e:.2e}" for n, e in edge2.items())
+        + f" (<= 1e-5); {n_diff2} entries differ from the plain version in "
+        f"all; kernel {ms2:.4f} ms, graph {g2:.5f} ms, plain "
+        f"{ms2p:.4f} ms, torch.linalg.inv_ex {lib2:.5f} ms, bound {b2:.5f} ms "
+        f"({by2}) | n=128: graph {g2_128:.5f} ms, torch.linalg.inv_ex "
+        f"{lib2_128:.5f} ms, bound {b2_128:.5f} ms ({by2_128})")
     kernels["gj_inverse"] = {
         "name": "gj_inverse", "route": "cuda",
         "source": "kinetica_tpu_torch/csrc/gj_inverse.cu",
         "replaces": "kinetica_tpu/ops/pallas_linalg.py:71",
-        "max_abs_err": max_err2, "max_rel_err": float(rel.max()), "ms": ms2,
-        "plain_ms": ms2p}
+        "max_abs_err": max_err2, "max_rel_err": float(rel.max()),
+        "entries_differing_from_plain": n_diff2, "ms": ms2, "graph_ms": g2,
+        "plain_ms": ms2p, "bound_ms": b2, "bound_by": by2,
+        "library_ms": lib2, "library_call": LIBRARY_INV,
+        "graph_ms_n128": g2_128, "library_ms_n128": lib2_128,
+        "bound_ms_n128": b2_128, "bound_by_n128": by2_128}
 
-    # ---- phase 4b: each kernel above 48 KB of shared memory ----
-    # off the main path: the launch that raises the dynamic shared-memory
-    # limit, at nr = 8000 reactions (64.6 KB of rates) and n = 128 (131.6 KB)
+    # ---- phase 4b: the widest shapes of the RHS and Gauss-Jordan kernels ----
+    # off the main path: the fused RHS launch that raises the dynamic
+    # shared-memory limit (nr = 8000 reactions, 64.6 KB of rates), and the
+    # Gauss-Jordan kernel at its full 128-wide tile
     nr_w = 8000
     N_w = rng.integers(-2, 3, (nr_w, sd.n)).astype(np.float64)
     slots_w = rng.integers(0, sd.n + 1, (nr_w, 2))
@@ -324,17 +397,22 @@ def main() -> None:
         fail(f"dd_contract: max |d| / sum|N r| {rel3:.3e} (nr={rd.nr}), "
              f"{rel3_w:.3e} (nr={nr_w}); {n_diff} entries differ from fused_rhs")
     ms3 = cuda_ms(lambda: dd(r_c))
+    g3 = graph_ms(lambda: dd(r_c))
     ms3p = cuda_ms(lambda: dd.plain(r_c))
+    lib3 = graph_ms(lambda: r_c @ net.N)
+    b3, by3 = bound(*dd_work(dd, BATCH), "f64")
     say(f"phase 4c dd_contract: B={BATCH} nr={rd.nr} ns={sd.n}: max |d| "
         f"{max_err3:.3e}, max |d| / sum|N r| {rel3:.3e} (<= 1e-12), equal to "
         f"fused_rhs bit for bit; nr={nr_w}: {rel3_w:.3e} (<= 1e-12); kernel "
-        f"{ms3:.4f} ms, plain {ms3p:.4f} ms")
+        f"{ms3:.4f} ms, graph {g3:.5f} ms, plain {ms3p:.4f} ms, r @ N (dense "
+        f"f64) {lib3:.5f} ms, bound {b3:.5f} ms ({by3})")
     kernels["dd_contract"] = {
         "name": "dd_contract", "route": "cuda",
         "source": "kinetica_tpu_torch/csrc/dd_contract.cu",
         "replaces": "kinetica_tpu/ops/pallas_matmul.py:103",
         "max_abs_err": max_err3, "max_rel_err": rel3, "ms": ms3,
-        "plain_ms": ms3p}
+        "graph_ms": g3, "plain_ms": ms3p, "bound_ms": b3, "bound_by": by3,
+        "library_ms": lib3, "library_call": "r @ N (dense f64), graph_ms"}
 
     # ---- phase 4d: Newton-solve kernel vs its plain version ----
     # the Newton matrices of phase 4 (without the singular member), M from
@@ -382,18 +460,24 @@ def main() -> None:
              f"{lane4_w:.3e} (n=128); max residual {res4_f:.3e} (n=73), "
              f"stale lane {res4_s:.3e}, {float(res4_w.max()):.3e} (n=128)")
     ms4 = cuda_ms(lambda: fused_newton_solve(M4, JB, b4, c))
+    g4 = graph_ms(lambda: fused_newton_solve(M4, JB, b4, c))
     ms4p = cuda_ms(lambda: fused_newton_solve_plain(M4, JB, b4, c))
+    b4_ms, by4 = bound(*solve_work(BATCH, sd.n), "f32")
     say(f"phase 4d newton_solve: B={BATCH} n={sd.n}: per-lane max |d| / "
         f"max|dy| {lane4:.3e} (<= 1e-5), max |b - A dy| / |b| {res4_f:.3e} "
         f"(<= 1e-4; lane {STALE}, M at 1.2 c = {float(c[STALE]):.2e}, "
         f"not bounded: {res4_s:.3e}); n=128: {lane4_w:.3e}, residual "
-        f"{float(res4_w.max()):.3e}; kernel {ms4:.4f} ms, plain {ms4p:.4f} ms")
+        f"{float(res4_w.max()):.3e}; kernel {ms4:.4f} ms, graph {g4:.5f} ms, "
+        f"plain {ms4p:.4f} ms, bound {b4_ms:.5f} ms ({by4}), no single "
+        f"library call")
     kernels["newton_solve"] = {
         "name": "newton_solve", "route": "cuda",
         "source": "kinetica_tpu_torch/csrc/newton_solve.cu",
         "replaces": "kinetica_tpu/ops/pallas_linalg.py:283",
         "max_abs_err": max_err4, "max_rel_err": lane4, "ms": ms4,
-        "plain_ms": ms4p}
+        "graph_ms": g4, "plain_ms": ms4p, "bound_ms": b4_ms, "bound_by": by4,
+        "library_ms": None, "library_call": "no single call (inverse "
+        "application, f64-residual refinement, per-lane stop)"}
 
     # ---- phase 4e: the grid probe ----
     x = torch.ones(grid_probe.ROWS, grid_probe.COLS, device=dev)
@@ -404,17 +488,23 @@ def main() -> None:
         fail(f"grid probe: |kernel - plain| {err5:.3e}, passed="
              f"{grid_probe.passed}")
     ms5 = cuda_ms(lambda: grid_probe.grid_probe(x))
+    g5 = graph_ms(lambda: grid_probe.grid_probe(x))
     ms5p = cuda_ms(lambda: grid_probe.grid_probe_plain(x))
+    # x read, the zeroed output written, BLOCKS f32 additions an element
+    b5, by5 = bound(2 * x.numel() * 4, grid_probe.BLOCKS * x.numel(), "f32")
     say(f"phase 4e grid_probe: {grid_probe.BLOCKS} blocks into one "
         f"({grid_probe.ROWS}, {grid_probe.COLS}) output: every element "
         f"{float(out_k.min()):.1f}, |kernel - plain| {err5:.1e} (<= "
-        f"{grid_probe.TOL}); passed at start-up; kernel {ms5:.4f} ms, plain "
-        f"{ms5p:.4f} ms")
+        f"{grid_probe.TOL}); passed at start-up; kernel {ms5:.4f} ms, graph "
+        f"{g5:.5f} ms, plain {ms5p:.4f} ms, bound {b5:.6f} ms ({by5}), no "
+        f"single library call")
     kernels["grid_probe"] = {
         "name": "grid_probe", "route": "cuda",
         "source": "kinetica_tpu_torch/csrc/grid_probe.cu",
         "replaces": "kinetica_tpu/ops/pallas_matmul.py:686",
-        "max_abs_err": err5, "ms": ms5, "plain_ms": ms5p}
+        "max_abs_err": err5, "ms": ms5, "graph_ms": g5, "plain_ms": ms5p,
+        "bound_ms": b5, "bound_by": by5, "library_ms": None,
+        "library_call": "no single call (a multi-block accumulation probe)"}
 
     # ---- phase 4f: the multi-tile widths, n = 181 (B=64) and 512 (B=8) ----
     # n = 181: Newton matrices of the nc=60 f32 Jacobian at member 0's
@@ -457,8 +547,11 @@ def main() -> None:
             fail(f"schur_inverse n={n}: max rel Frobenius {rel_s:.3e}, max "
                  f"|I - A M| after Newton-Schulz {res_s:.3e}")
         ms_s = cuda_ms(lambda: gj_inverse.schur_inverse(As_n))
+        g_s = graph_ms(lambda: gj_inverse.schur_inverse(As_n))
         ms_sp = cuda_ms(lambda: gj_inverse.schur_inverse_plain(As_n), n=5,
                         warm=1)
+        lib_s = loop_ms(lambda: torch.linalg.inv_ex(As_n)[0])
+        b_s, by_s = bound(*inverse_work(A_n.shape[0], n), "f32")
         # Newton solve: M the main path's factor of the same matrices
         M_f = _inv_factor(A_n).contiguous()
         J_n = J60B if n == sd60.n else J512
@@ -473,21 +566,63 @@ def main() -> None:
             fail(f"newton_solve n={n}: per-lane max |d| / max|dy| "
                  f"{lane_n:.3e}, max residual {float(res_n.max()):.3e}")
         ms_n = cuda_ms(lambda: fused_newton_solve(M_f, J_n, b_n, c_n))
+        g_n = graph_ms(lambda: fused_newton_solve(M_f, J_n, b_n, c_n))
         ms_np = cuda_ms(lambda: fused_newton_solve_plain(M_f, J_n, b_n, c_n))
-        wide[n] = dict(schur_ms=ms_s, schur_plain_ms=ms_sp, solve_ms=ms_n,
-                       solve_plain_ms=ms_np)
+        b_n_ms, by_n = bound(*solve_work(A_n.shape[0], n), "f32")
+        kernels["gj_inverse"].update({
+            f"ms_n{n}": ms_s, f"graph_ms_n{n}": g_s, f"plain_ms_n{n}": ms_sp,
+            f"library_ms_n{n}": lib_s, f"bound_ms_n{n}": b_s,
+            f"bound_by_n{n}": by_s})
+        kernels["newton_solve"].update({
+            f"ms_n{n}": ms_n, f"graph_ms_n{n}": g_n, f"plain_ms_n{n}": ms_np,
+            f"bound_ms_n{n}": b_n_ms, f"bound_by_n{n}": by_n})
         say(f"phase 4f n={n} B={A_n.shape[0]}: schur_inverse max rel "
             f"Frobenius {rel_s:.3e} (<= 1e-5), max |I - A M| after "
-            f"Newton-Schulz {res_s:.3e} (<= 1e-3); kernel {ms_s:.4f} ms, plain "
-            f"{ms_sp:.4f} ms | newton_solve per-lane max |d| / max|dy| "
-            f"{lane_n:.3e} (<= 1e-5), max |b - A dy| / |b| "
-            f"{float(res_n.max()):.3e} (<= 1e-4); kernel {ms_n:.4f} ms, plain "
-            f"{ms_np:.4f} ms")
-    for kname, key in (("gj_inverse", "schur"), ("newton_solve", "solve")):
-        for n, w in wide.items():
-            kernels[kname][f"ms_n{n}"] = w[f"{key}_ms"]
-            kernels[kname][f"plain_ms_n{n}"] = w[f"{key}_plain_ms"]
+            f"Newton-Schulz {res_s:.3e} (<= 1e-3); kernel {ms_s:.4f} ms, graph "
+            f"{g_s:.5f} ms, plain {ms_sp:.4f} ms, torch.linalg.inv_ex "
+            f"{lib_s:.5f} ms, bound {b_s:.5f} ms ({by_s}) | newton_solve "
+            f"per-lane max |d| / max|dy| {lane_n:.3e} (<= 1e-5), max |b - A dy|"
+            f" / |b| {float(res_n.max()):.3e} (<= 1e-4); kernel {ms_n:.4f} ms, "
+            f"graph {g_n:.5f} ms, plain {ms_np:.4f} ms, bound {b_n_ms:.5f} ms "
+            f"({by_n})")
+    # the fused RHS and the contraction at the nc=60 sweep's width (phase 8)
+    fused60 = FusedMassActionRHS(net60.N, net60.reac_slots, dev)
+    dd60 = DDContraction(net60.N, dev)
+    u60 = 10.0 ** rng.uniform(-14, 0, (BATCH, sd60.n))
+    u60_aug = augment(torch.as_tensor(u60, device=dev), net60.delta).contiguous()
+    k60 = calc60(torch.as_tensor(rng.uniform(700.0, 1300.0, BATCH),
+                                 dtype=torch.float64, device=dev)).contiguous()
+    du60 = fused60(u60_aug, k60)
+    rel60 = rhs_rel_err(fused60, u60_aug, k60, du60)
+    r60 = net60.rates(torch.as_tensor(u60, device=dev), k60).contiguous()
+    if not rel60 <= 1e-12 or not torch.equal(dd60(r60), du60):
+        fail(f"fused_rhs nc={WIDE_CARBONS}: max |d| / sum|N r| {rel60:.3e}, "
+             "or dd_contract differs from it")
+    g60 = graph_ms(lambda: fused60(u60_aug, k60))
+    b60, by60 = bound(*rhs_work(fused60, BATCH), "f64")
+    g60d = graph_ms(lambda: dd60(r60))
+    lib60d = graph_ms(lambda: r60 @ net60.N)
+    b60d, by60d = bound(*dd_work(dd60, BATCH), "f64")
+    kernels["fused_rhs"].update({
+        f"graph_ms_nc{WIDE_CARBONS}": g60, f"bound_ms_nc{WIDE_CARBONS}": b60,
+        f"bound_by_nc{WIDE_CARBONS}": by60})
+    kernels["dd_contract"].update({
+        f"graph_ms_nc{WIDE_CARBONS}": g60d,
+        f"library_ms_nc{WIDE_CARBONS}": lib60d,
+        f"bound_ms_nc{WIDE_CARBONS}": b60d, f"bound_by_nc{WIDE_CARBONS}": by60d})
+    say(f"phase 4f nc={WIDE_CARBONS} B={BATCH} ({rd60.nr} rxn / {sd60.n} sp):"
+        f" fused_rhs max |d| / sum|N r| {rel60:.3e} (<= 1e-12), dd_contract "
+        f"equal bit for bit; fused_rhs graph {g60:.5f} ms, bound {b60:.5f} ms "
+        f"({by60}); dd_contract graph {g60d:.5f} ms, r @ N (dense f64) "
+        f"{lib60d:.5f} ms, bound {b60d:.5f} ms ({by60d})")
     total = dict.fromkeys(KERNELS, 0)
+    per_step = {kname: {} for kname in KERNELS}
+
+    def record(phase, launches, steps):
+        """Add a path's launches; each kernel's launches per step there."""
+        for kname in KERNELS:
+            total[kname] += launches[kname]
+            per_step[kname][phase] = launches[kname] / steps
 
     # ---- phase 5: the continuous sweep, warm-up then the counted run ----
     t0 = time.perf_counter()
@@ -531,8 +666,7 @@ def main() -> None:
         f"{ens.stats['attempts']} retry batch {ens.stats['retry_batch']}; "
         f"launches {launches} ({sum(launches.values()) / steps_max:.2f} of "
         f"these kernels/step)")
-    for kname in KERNELS:
-        total[kname] += launches[kname]
+    record("5", launches, steps_max)
 
     # ---- phase 6: solve_network, member 0's ramp, inv_fused + dd ----
     sd6, rd6, calc6, conds6, pars6 = build_problem(
@@ -565,8 +699,7 @@ def main() -> None:
         f"{st['n_lu']}); {single_s * 1e3 / st['n_steps']:.3f} ms/step; host "
         f"syncs {syncs} ({syncs / st['n_steps']:.2f}/step); launches {launches} "
         f"({sum(launches.values()) / st['n_steps']:.2f} of these kernels/step)")
-    for kname in KERNELS:
-        total[kname] += launches[kname]
+    record("6", launches, st['n_steps'])
 
     # ---- phase 7: the discrete ensemble, inv_fused + dd ----
     sd7, rd7, calc7, conds7, pars7 = build_problem(
@@ -611,8 +744,7 @@ def main() -> None:
         f"host syncs {syncs} ({syncs / s7_max:.2f}/step); attempts "
         f"{ens7.stats['attempts']}; launches {launches} "
         f"({sum(launches.values()) / s7_max:.2f} of these kernels/step)")
-    for kname in KERNELS:
-        total[kname] += launches[kname]
+    record("7", launches, s7_max)
 
     # ---- phase 8: the nc=60 continuous sweep (multi-tile), B=64 ----
     # warm-up: B=8 over the first two chunks (new widths for cuBLAS and the
@@ -667,8 +799,7 @@ def main() -> None:
         f"{refresh_lanes / max(refreshes, 1):.2f} lanes per refresh; attempts "
         f"{st8['attempts']}; launches {launches} "
         f"({sum(launches.values()) / s8_max:.2f} of these kernels/step)")
-    for kname in KERNELS:
-        total[kname] += launches[kname]
+    record("8", launches, s8_max)
 
     # ---- phase 9: solve_network at nc=60, member 0, inv_fused + dd ----
     sd9, rd9, calc9, conds9, pars9 = build_problem(
@@ -706,11 +837,11 @@ def main() -> None:
         f"host syncs {syncs} ({syncs / st9['n_steps']:.2f}/step); launches "
         f"{launches} ({sum(launches.values()) / st9['n_steps']:.2f} of these "
         f"kernels/step)")
-    for kname in KERNELS:
-        total[kname] += launches[kname]
+    record("9", launches, st9['n_steps'])
 
     for kname in KERNELS:
         kernels[kname]["launches"] = total[kname]
+        kernels[kname]["launches_per_step"] = per_step[kname]
     say(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import constants
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..utils.time_units import tconvert
 from .base import KineticCalculator
 
@@ -30,12 +31,13 @@ class DummyKineticCalculator(KineticCalculator):
     result has the conditions' batch shape + (nr,)."""
     allows_continuous = True
 
-    def __init__(self, rates, k_max=None, t_unit: str = "s", device="cpu"):
+    def __init__(self, rates, k_max=None, t_unit: str = "s",
+                 device=DEFAULT_DEVICE):
         self.rates = np.asarray(rates, dtype=np.float64)
         self.k_max = k_max
         self.t_unit = t_unit
         self.t_mult = tconvert(t_unit, "s")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def setup_network(self, sd, rd) -> None:
         if len(self.rates) != rd.nr:
@@ -68,13 +70,14 @@ class PrecalculatedArrheniusCalculator(KineticCalculator):
     """
     allows_continuous = True
 
-    def __init__(self, Ea, A, k_max=None, t_unit: str = "s", device="cpu"):
+    def __init__(self, Ea, A, k_max=None, t_unit: str = "s",
+                 device=DEFAULT_DEVICE):
         self.Ea = np.asarray(Ea, dtype=np.float64)
         self.A = np.asarray(A, dtype=np.float64)
         self.k_max = k_max
         self.t_unit = t_unit
         self.t_mult = tconvert(t_unit, "s")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._to_device()
 
     def _to_device(self) -> None:
@@ -123,7 +126,7 @@ class PrecalculatedLindemannCalculator(KineticCalculator):
     allows_continuous = True
 
     def __init__(self, Ea, A_0, A_inf, k_max=None, t_unit: str = "s",
-                 strict_reference_parity: bool = False, device="cpu"):
+                 strict_reference_parity: bool = False, device=DEFAULT_DEVICE):
         self.Ea = np.asarray(Ea, dtype=np.float64)
         self.A_0 = np.asarray(A_0, dtype=np.float64)
         self.A_inf = np.asarray(A_inf, dtype=np.float64)
@@ -131,7 +134,7 @@ class PrecalculatedLindemannCalculator(KineticCalculator):
         self.t_unit = t_unit
         self.t_mult = tconvert(t_unit, "s")
         self.strict_reference_parity = strict_reference_parity
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._to_device()
 
     def _to_device(self) -> None:

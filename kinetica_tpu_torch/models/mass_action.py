@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..core.network import RxData
+from ..device import DEFAULT_DEVICE, resolve_device
 
 # Smoothing half-width of the clipped-concentration kink (see _clip_pos).
 CLIP_DELTA = 1e-12
@@ -69,9 +70,11 @@ class MassActionNetwork(nn.Module):
 
     @classmethod
     def from_numpy(cls, reac_slots, N, delta: float = CLIP_DELTA,
-                   device="cpu", dtype=torch.float64) -> "MassActionNetwork":
+                   device=DEFAULT_DEVICE,
+                   dtype=torch.float64) -> "MassActionNetwork":
         """Build from host arrays, e.g. ``np.asarray(jax_net.N)``."""
         # np.array copies: arrays taken from jax are read-only
+        device = resolve_device(device)
         return cls(torch.as_tensor(np.array(reac_slots, dtype=np.int64),
                                    device=device),
                    torch.as_tensor(np.array(N), dtype=dtype, device=device),
@@ -135,7 +138,7 @@ class MassActionNetwork(nn.Module):
         return MassActionNetwork(self.reac_slots, self.N.to(dtype), self.delta)
 
 
-def build_mass_action(rd: RxData, ns: int, device="cpu",
+def build_mass_action(rd: RxData, ns: int, device=DEFAULT_DEVICE,
                       dtype=torch.float64, min_arity: int = 2,
                       clip_delta: float = CLIP_DELTA) -> MassActionNetwork:
     """Compile an :class:`RxData` into padded dense arrays on ``device``."""

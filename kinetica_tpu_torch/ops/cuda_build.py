@@ -1,18 +1,20 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C launch function.
-It is compiled at first use with ``nvcc`` for ``sm_90a`` into a shared
-library under ``kinetica_tpu_torch/_build/`` and loaded with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. Nothing here
-runs at import time: the CPU tests import every module on a machine with
-no ``nvcc``.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C launch function,
+which may include headers of ``csrc/`` (``#include "x.cuh"``). It is
+compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
+under ``kinetica_tpu_torch/_build/`` and loaded with ``ctypes``. The
+library's file name carries a hash of the source, the headers it includes
+and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. Nothing here runs at import time: the CPU tests
+import every module on a machine with no ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,14 +44,32 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, the ``csrc/`` headers it includes (and
+    theirs) and the flags."""
+    h = hashlib.sha256()
+    todo, seen = [f"{name}.cu"], set()
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = (CSRC / path).read_bytes()
+        h.update(path.encode() + b"\0" + text + b"\0")
+        todo.extend(m.decode() for m in _INCLUDE.findall(text))
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}-{digest}.so"
+    so = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
     info = {"seconds": 0.0, "ptxas": ""}
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -31,6 +31,17 @@ from .grid_probe import ensure_grid_supported
 
 # kernel launches since the last reset (the plain path never counts)
 launches = 0
+# the shared memory one block may hold on an H100 (the kernels stage a
+# lane's rates there)
+MAX_SMEM = 227 * 1024
+
+
+def check_smem(nbytes: int, name: str) -> None:
+    """Raise where a lane's staged values exceed a block's shared memory."""
+    if nbytes > MAX_SMEM:
+        raise ValueError(
+            f"{name}: a lane needs {nbytes / 1024:.1f} KB of shared memory, "
+            f"above the {MAX_SMEM // 1024} KB a block holds on this card")
 
 
 class SpeciesCSR(NamedTuple):
@@ -83,6 +94,8 @@ class DDContraction:
         Nh = host_stoichiometry(N)
         self.nr, self.ns = Nh.shape
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            check_smem(8 * self.nr, "dd_contract")
         ensure_grid_supported(self.device)
         self.csr = species_csr(Nh, self.device)
 

@@ -33,8 +33,8 @@ import numpy as np
 import torch
 
 from .cuda_build import check_launch, load_library
-from .dd_contract import (SpeciesCSR, dd_contract_plain, host_stoichiometry,
-                          species_csr)
+from .dd_contract import (SpeciesCSR, check_smem, dd_contract_plain,
+                          host_stoichiometry, species_csr)
 from .grid_probe import ensure_grid_supported
 
 # kernel launches since the last reset (the plain path never counts)
@@ -71,6 +71,8 @@ class FusedMassActionRHS:
             raise ValueError("reac_slots entries must lie in [0, ns]")
         self.nr, self.ns, self.arity = nr, ns, slots.shape[1]
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            check_smem(8 * (ns + 1 + nr), "fused_rhs")
         ensure_grid_supported(self.device)
         self.slots = torch.as_tensor(slots, dtype=torch.int32,
                                      device=self.device).contiguous()

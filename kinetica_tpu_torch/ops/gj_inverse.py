@@ -9,14 +9,16 @@ singular member comes out finite instead of NaN.
 
 On a CUDA tensor :func:`gj_inverse` launches the kernel or raises; on a
 CPU tensor it runs :func:`gj_inverse_plain`, the same elimination as a
-batched column loop in PyTorch. ``torch.linalg.inv`` is not a stand-in:
-it has no pivot clamp.
+batched column loop in PyTorch. The kernel works in place and rounds
+each product and difference as the plain version does, so the two agree
+bit for bit. ``torch.linalg.inv`` is not a stand-in: it has no pivot
+clamp.
 
-The kernel takes n <= 128 (one block holds the augmented [A | I] block in
-shared memory). Wider systems, up to 512, go through :func:`schur_inverse`,
-the reference's block-Schur composition (``pallas_linalg.py::
-schur_inverse``): Gauss-Jordan kernel launches on the diagonal blocks, f32
-matrix products for the coupling terms.
+The kernel takes n <= 128 (one 512-thread block holds the matrix in its
+registers, 32 floats a thread). Wider systems, up to 512, go through
+:func:`schur_inverse`, the reference's block-Schur composition
+(``pallas_linalg.py::schur_inverse``): Gauss-Jordan kernel launches on
+the diagonal blocks, f32 matrix products for the coupling terms.
 """
 from __future__ import annotations
 
@@ -107,11 +109,14 @@ def _schur(A: torch.Tensor, inv) -> torch.Tensor:
     T = A21 @ I11
     S = A22 - T @ A12
     Sinv = _schur(S, inv)
-    M12 = -((I11 @ A12) @ Sinv)
-    M21 = -(Sinv @ T)
-    M11 = I11 - M12 @ T
-    return torch.cat([torch.cat([M11, M12], dim=2),
-                      torch.cat([M21, Sinv], dim=2)], dim=1)
+    # the four blocks go straight into the output (no concatenation)
+    out = A.new_empty(A.shape)
+    M12 = out[:, :n1, n1:]
+    torch.neg((I11 @ A12) @ Sinv, out=M12)
+    torch.neg(Sinv @ T, out=out[:, n1:, :n1])
+    torch.sub(I11, M12 @ T, out=out[:, :n1, :n1])
+    out[:, n1:, n1:] = Sinv
+    return out
 
 
 def _check_schur(A: torch.Tensor) -> None:

@@ -24,11 +24,12 @@ import torch
 
 from ..conditions.condition_set import ConditionSet
 from ..core.network import RxData, SpeciesData
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.mass_action import build_mass_action, resolve_clip_delta
 from ..ops import bdf
 from ..solving.methods import (VariableODESolve, _chunk_local_stops,
                                _chunk_save_grid, _jac_dtype, _make_rhs_jac,
-                               _resolve_contraction, resolve_device)
+                               _resolve_contraction)
 from ..solving.solutions import EnsembleSolution, retcode_from_status
 from ..solving.solve_utils import calculate_discrete_rates, make_u0
 from ..utils.logging import logger
@@ -121,7 +122,7 @@ class EnsembleProblem:
 
     def __init__(self, method: VariableODESolve, sd: SpeciesData, rd: RxData,
                  chunk_mode: str = "auto", rate_mode: str = "discrete",
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         if chunk_mode == "auto":
             chunk_mode = "async"
         if chunk_mode != "async":
@@ -364,7 +365,7 @@ def solve_network_ensemble(method: VariableODESolve, sd: SpeciesData,
                            conditions_list: list[ConditionSet] | None = None,
                            u0s: np.ndarray | None = None,
                            rate_mode: str = "discrete",
-                           device="cpu") -> EnsembleSolution:
+                           device=DEFAULT_DEVICE) -> EnsembleSolution:
     """One-shot chunkwise ensemble solve (builds the problem each call; use
     :class:`EnsembleProblem` to reuse it across sweeps)."""
     return EnsembleProblem(method, sd, rd, rate_mode=rate_mode,

@@ -33,6 +33,7 @@ import torch
 from ..calculators.base import KineticCalculator
 from ..conditions.condition_set import ConditionSet
 from ..core.network import RxData, SpeciesData
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.mass_action import (MassActionNetwork, augment,
                                   build_mass_action, resolve_clip_delta)
 from ..ops import bdf
@@ -397,7 +398,7 @@ def _run_chunkwise(rhs, jac, u0, pars: ODESimulationParams,
 
 def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
                   copy_network: bool = True, return_integrator: bool = False,
-                  device="cpu"):
+                  device=DEFAULT_DEVICE):
     """Solve a CRN under the given method on ``device``; returns an
     :class:`~kinetica_tpu_torch.analysis.io.ODESolveOutput`.
 
@@ -512,11 +513,3 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
     sol = ODESolution(t=ts, u=ys, retcode=retcode_from_status(status),
                       vcs=vcs, k=k_series, stats=stats)
     return ODESolveOutput(method, sol, sd_active, rd_active)
-
-
-def resolve_device(device) -> torch.device:
-    """An explicit device; a CUDA device without a card is an error."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("a CUDA device was requested but none is available")
-    return device

@@ -66,7 +66,7 @@ def test_equals_fused_rhs_on_the_same_rates():
     from kinetica_tpu_torch.models.mass_action import MassActionNetwork
     from kinetica_tpu_torch.ops.fused_rhs import FusedMassActionRHS
     N, slots = _network(6)
-    net = MassActionNetwork.from_numpy(slots, N)
+    net = MassActionNetwork.from_numpy(slots, N, device="cpu")
     rng = np.random.default_rng(2)
     u = torch.as_tensor(10.0 ** rng.uniform(-12, 0, (5, N.shape[1])))
     k = torch.as_tensor(10.0 ** rng.uniform(-3, 12, (5, N.shape[0])))

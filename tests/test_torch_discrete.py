@@ -32,6 +32,12 @@ def quiet():
     logging.disable(logging.NOTSET)
 
 
+def _dev(pkg):
+    """The port's entry points default to the card; the CPU tests ask for
+    the CPU (the JAX package's take no device)."""
+    return {"device": "cpu"} if pkg == "kinetica_tpu_torch" else {}
+
+
 def _setup(pkg, **kw):
     import importlib
     syn = importlib.import_module(f"{pkg}.testing.synthetic")
@@ -41,7 +47,8 @@ def _setup(pkg, **kw):
     par_m = importlib.import_module(f"{pkg}.solving.params")
     meth_m = importlib.import_module(f"{pkg}.solving.methods")
     sd, rd, Ea, A = syn.synthetic_pyrolysis_network(NC)
-    calc = calc_m.PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX)
+    calc = calc_m.PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX,
+                                                   **_dev(pkg))
     conds = [cs_m.ConditionSet({"T": prof_m.LinearGradientProfile(
         rate=float(r), X_start=X0, X_end=X0 + float(r) * TF)}, ts_update=TS)
         for r in np.linspace(40.0, 60.0, B)]
@@ -178,7 +185,8 @@ def test_solve_network_ensemble_fused_solve_and_dd(solves):
     sd, rd, _, conds, _, method = _setup("kinetica_tpu_torch",
                                          linsolve="inv_fused",
                                          rhs_contraction="dd")
-    res = solve_network_ensemble(method, sd, rd, conditions_list=conds[:1])
+    res = solve_network_ensemble(method, sd, rd, conditions_list=conds[:1],
+                                 device="cpu")
     assert res.success and res.u.shape == ens.u[:1].shape
     assert np.max(np.abs(res.u[0] - ens.u[0])) <= 1e-6
 
@@ -186,6 +194,7 @@ def test_solve_network_ensemble_fused_solve_and_dd(solves):
 def test_auto_chunk_mode_resolves_to_async():
     from kinetica_tpu_torch.parallel.batching import EnsembleProblem
     sd, rd, _, _, _, method = _setup("kinetica_tpu_torch")
-    assert EnsembleProblem(method, sd, rd).chunk_mode == "async"
+    assert EnsembleProblem(method, sd, rd,
+                           device="cpu").chunk_mode == "async"
     with pytest.raises(ValueError, match="not ported"):
-        EnsembleProblem(method, sd, rd, chunk_mode="scan")
+        EnsembleProblem(method, sd, rd, chunk_mode="scan", device="cpu")

@@ -117,6 +117,25 @@ def test_large_stoichiometry_accepted():
                   + 1e-300)
 
 
+@pytest.mark.parametrize("B", [1, 64])
+def test_edge_network_matches_pallas_interpret(B):
+    """A species row with no entries and one with 700 (the kernel's warp
+    strides it 22 times), at one lane and at 64: the plain version against
+    the reference in interpret mode, to the tolerance above; the empty
+    row's du is exactly 0."""
+    from kinetica_tpu.ops.pallas_matmul import FusedMassActionRHS as Ref
+    from kinetica_tpu_torch.testing.kernel_cases import rhs_edge_network
+    N, slots, empty, long = rhs_edge_network()
+    assert np.count_nonzero(N[:, long]) == 700
+    u_aug, k = _inputs(N, slots, B, seed=B)
+    ref = Ref(N, slots, interpret=True, mode="scan")
+    du_ref = np.asarray(jax.vmap(ref.rhs_pair)(*_pairs(u_aug), *_pairs(k)))
+    du = _port_rhs(N, slots, u_aug, k)
+    assert np.all(np.abs(du - du_ref) <= 1e-12 * _bound(N, slots, u_aug, k)
+                  + 1e-300)
+    assert np.all(du[:, empty] == 0.0) and np.all(du[:, long] != 0.0)
+
+
 # ---- wrapper guards (checked before any device code) ----
 
 def _fused():

@@ -69,6 +69,32 @@ def test_singular_member_is_finite_and_equal():
     assert np.all(_rel_fro(M, M_ref) <= 1e-5)
 
 
+@pytest.mark.parametrize("n", [1, 33, 53, 73, 127, 128])
+def test_edge_cases_match_reference(n):
+    """The kernel's edge cases (``testing.kernel_cases``): a well-conditioned
+    member, a pivot tie in column 0, a NaN column and a zero column.
+    Tolerance as above, norms in f64 (the singular member is ~1e30). In a
+    NaN column the JAX kernel selects no pivot row (a zero pivot row, which
+    may leave the member finite) and the port keeps row k (its rule on the
+    card too), so that member is not compared: the port's is all NaN, and
+    no other member is touched."""
+    from kinetica_tpu_torch.testing.kernel_cases import (GJ_EDGE_WIDTHS,
+                                                          gj_edge_cases)
+    assert n in GJ_EDGE_WIDTHS
+    A, names = gj_edge_cases(n, seed=n)
+    M, M_ref = _port(A), _ref(A)
+    nan = names.index("nan_column")
+    assert np.all(np.isnan(M[nan]))
+    keep = [i for i in range(len(names)) if i != nan]
+    assert np.all(np.isfinite(M[keep])) and np.all(np.isfinite(M_ref[keep]))
+    assert np.all(_rel_fro(M[keep], M_ref[keep]) <= 1e-5)
+    for name in ("random", "tie"):
+        if name in names:
+            i = names.index(name)
+            resid = np.eye(n) - A[i].astype(np.float64) @ M[i].astype(np.float64)
+            assert np.abs(resid).max() < 1e-3
+
+
 def test_batch_of_one():
     A = _newton_matrices(1, 19, seed=3)
     M = _port(A)

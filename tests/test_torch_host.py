@@ -111,7 +111,7 @@ def test_arrhenius_rates_match(k_max):
     assert k1.shape == (T.size, A.size)
     np.testing.assert_allclose(k1, k0, rtol=1e-14, atol=0)
     # scalar T gives the (nr,) vector
-    k_s = C1(Ea, A, k_max=k_max)(900.0).numpy()
+    k_s = C1(Ea, A, k_max=k_max, device="cpu")(900.0).numpy()
     np.testing.assert_allclose(k_s, np.asarray(C0(Ea, A, k_max=k_max)(900.0)),
                                rtol=1e-14, atol=0)
 
@@ -122,7 +122,7 @@ def test_dummy_calculator_matches():
         DummyKineticCalculator as D1)
     rates = np.array([1.0, 2.5e3, 7e11, 0.0])
     np.testing.assert_array_equal(
-        D1(rates, k_max=1e12, t_unit="ms")(T=800.0).numpy(),
+        D1(rates, k_max=1e12, t_unit="ms", device="cpu")(T=800.0).numpy(),
         np.asarray(D0(rates, k_max=1e12, t_unit="ms")(T=800.0)))
 
 

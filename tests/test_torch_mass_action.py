@@ -29,7 +29,8 @@ def _case(nc, seed):
     sd, rd, Ea, A = synthetic_pyrolysis_network(nc)
     jnet = build_mass_action(rd, sd.n, clip_delta=1e-12)
     tnet = MassActionNetwork.from_numpy(np.asarray(jnet.reac_slots),
-                                        np.asarray(jnet.N), delta=jnet.delta)
+                                        np.asarray(jnet.N), delta=jnet.delta,
+                                        device="cpu")
     rng = np.random.default_rng(seed)
     u = 10.0 ** rng.uniform(-14, 0, (B, sd.n))
     u[rng.random((B, sd.n)) < 0.15] = 0.0

@@ -39,6 +39,12 @@ def quiet():
     logging.disable(logging.NOTSET)
 
 
+def _dev(pkg):
+    """The port's entry points default to the card; the CPU tests ask for
+    the CPU (the JAX package's take no device)."""
+    return {"device": "cpu"} if pkg == "kinetica_tpu_torch" else {}
+
+
 def _static(pkg, **par_kw):
     import importlib
     syn = importlib.import_module(f"{pkg}.testing.synthetic")
@@ -47,14 +53,15 @@ def _static(pkg, **par_kw):
     par_m = importlib.import_module(f"{pkg}.solving.params")
     meth_m = importlib.import_module(f"{pkg}.solving.methods")
     sd, rd, Ea, A = syn.synthetic_pyrolysis_network(NC, target_reactions=NR)
-    calc = calc_m.PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX)
+    calc = calc_m.PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX,
+                                                   **_dev(pkg))
     pars = par_m.ODESimulationParams(
         tspan=(0.0, TF), u0={f"C{NC}": 1.0}, solve_chunks=False,
         low_k_cutoff="none", save_interval=TF / 2, linsolve="inv_gated",
         **par_kw)
     out = meth_m.solve_network(
         meth_m.StaticODESolve(pars, cs_m.ConditionSet({"T": T_K}), calc),
-        sd, rd)
+        sd, rd, **_dev(pkg))
     assert sd.n == 181 and out.sol.success
     return out.sol
 
@@ -97,7 +104,7 @@ def test_ensemble_matches_per_lane_solves():
     from kinetica_tpu_torch.solving.params import ODESimulationParams
     from kinetica_tpu_torch.testing.synthetic import synthetic_pyrolysis_network
     sd, rd, Ea, A = synthetic_pyrolysis_network(NC, target_reactions=NR)
-    calc = PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX)
+    calc = PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX, device="cpu")
     conds = [ConditionSet({"T": LinearGradientProfile(
         rate=float(r), X_start=T_K, X_end=T_K + float(r) * TF)})
         for r in np.linspace(1e5, 1e6, 16)]
@@ -109,7 +116,8 @@ def test_ensemble_matches_per_lane_solves():
                               conditions_list=conds)
     assert ens.success
     for b in (0, 7, 15):
-        out = solve_network(VariableODESolve(pars, conds[b], calc), sd, rd)
+        out = solve_network(VariableODESolve(pars, conds[b], calc), sd, rd,
+                            device="cpu")
         assert _close(ens.u[b], out.sol.u)
 
 
@@ -124,7 +132,7 @@ def test_stale_jacobian_refresh_serves_failed_lanes():
     from kinetica_tpu_torch.solving.params import ODESimulationParams
     from kinetica_tpu_torch.testing.synthetic import synthetic_pyrolysis_network
     sd, rd, Ea, A = synthetic_pyrolysis_network(5)
-    calc = PrecalculatedArrheniusCalculator(Ea, A, k_max=1e10)
+    calc = PrecalculatedArrheniusCalculator(Ea, A, k_max=1e10, device="cpu")
     tf, B = 0.5, 4
     conds = [ConditionSet({"T": LinearGradientProfile(
         rate=50.0, X_start=float(x), X_end=float(x) + 50.0 * tf)})

@@ -110,11 +110,11 @@ def test_linalg_inv_fused_matches_inv_gated():
     from kinetica_tpu_torch.ops.linalg import newton_factor, newton_solve
     from kinetica_tpu_torch.testing.synthetic import synthetic_pyrolysis_network
     sd, rd, Ea, A = synthetic_pyrolysis_network(6)
-    net = build_mass_action(rd, sd.n).to_dtype(torch.float32)
+    net = build_mass_action(rd, sd.n, device="cpu").to_dtype(torch.float32)
     rng = np.random.default_rng(7)
     B = 6
     u = torch.as_tensor(10.0 ** rng.uniform(-10, -1, (B, sd.n)))
-    k = PrecalculatedArrheniusCalculator(Ea, A, k_max=1e12)(
+    k = PrecalculatedArrheniusCalculator(Ea, A, k_max=1e12, device="cpu")(
         torch.as_tensor(rng.uniform(700, 1300, B)))
     J = net.jac_matmul(u.float(), k.float())
     c = torch.as_tensor(10.0 ** rng.uniform(-10, -8, B))

@@ -106,6 +106,8 @@ def _lindemann(pkg, **kw):
     Ea = rng.uniform(1.5e5, 3.5e5, nr)
     A_0 = 10.0 ** rng.uniform(-12, -6, nr)
     A_inf = 10.0 ** rng.uniform(12, 16, nr)
+    if pkg == "kinetica_tpu_torch":
+        kw["device"] = "cpu"
     return mod.PrecalculatedLindemannCalculator(Ea, A_0, A_inf, **kw)
 
 

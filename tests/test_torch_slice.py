@@ -23,6 +23,12 @@ NC, B, TF, CHUNK = 6, 4, 2.0, 0.5
 RTOL, ATOL, K_MAX, X0 = 1e-8, 1e-10, 1e12, 1000.0
 
 
+def _dev(pkg):
+    """The port's entry points default to the card; the CPU tests ask for
+    the CPU (the JAX package's take no device)."""
+    return {"device": "cpu"} if pkg == "kinetica_tpu_torch" else {}
+
+
 def _setup(pkg):
     import importlib
     syn = importlib.import_module(f"{pkg}.testing.synthetic")
@@ -32,7 +38,8 @@ def _setup(pkg):
     par_m = importlib.import_module(f"{pkg}.solving.params")
     meth_m = importlib.import_module(f"{pkg}.solving.methods")
     sd, rd, Ea, A = syn.synthetic_pyrolysis_network(NC)
-    calc = calc_m.PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX)
+    calc = calc_m.PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX,
+                                                   **_dev(pkg))
     conds = [cs_m.ConditionSet({"T": prof_m.LinearGradientProfile(
         rate=float(r), X_start=X0, X_end=X0 + float(r) * TF)})
         for r in np.linspace(40.0, 60.0, B)]

@@ -29,6 +29,7 @@ torch.set_num_threads(1)
 
 NC, X0, RATE, TF, CHUNK = 5, 1000.0, 50.0, 1.0, 0.25
 RTOL, ATOL, K_MAX = 1e-8, 1e-8, 1e12
+DEV = "cpu"
 
 VARIANTS = {
     "static_complete": ("static", False, "auto", "auto"),
@@ -47,6 +48,12 @@ def quiet():
     logging.disable(logging.NOTSET)
 
 
+def _dev(pkg):
+    """The port's entry points default to the card; the CPU tests ask for
+    the CPU (the JAX package's take no device)."""
+    return {"device": "cpu"} if pkg == "kinetica_tpu_torch" else {}
+
+
 def _problem(pkg, mode, chunks, linsolve="auto", contraction="auto"):
     import importlib
     syn = importlib.import_module(f"{pkg}.testing.synthetic")
@@ -56,7 +63,8 @@ def _problem(pkg, mode, chunks, linsolve="auto", contraction="auto"):
     par_m = importlib.import_module(f"{pkg}.solving.params")
     meth_m = importlib.import_module(f"{pkg}.solving.methods")
     sd, rd, Ea, A = syn.synthetic_pyrolysis_network(NC)
-    calc = calc_m.PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX)
+    calc = calc_m.PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX,
+                                                   **_dev(pkg))
     if mode == "static":
         cs = cs_m.ConditionSet({"T": X0})
         cls = meth_m.StaticODESolve
@@ -102,7 +110,7 @@ def variant(request):
     tm, method, sd, rd = _problem("kinetica_tpu_torch", mode, chunks,
                                   linsolve, contraction)
     fused_rhs.launches = dd_contract.launches = newton_solve.launches = 0
-    out = tm.solve_network(method, sd, rd, device="cpu")
+    out = tm.solve_network(method, sd, rd, device=DEV)
     launches = fused_rhs.launches + dd_contract.launches + newton_solve.launches
     final = _scipy_final(mode, sd, rd, method, out.sol.u[0])
     return dict(name=request.param, mode=mode, ref=ref, out=out, final=final,
@@ -162,7 +170,8 @@ def _toy(pkg, **kw):
         dH=[4.5, -4.5, 0.1, -3.8, 1.5, 3.8])
     calc = calc_m.PrecalculatedArrheniusCalculator(
         np.array([3.6e5, 0.0, 4.0e4, 0.0, 3.2e5, 3.5e5]),
-        np.array([1e-8, 1e-12, 1e-13, 1e-12, 1e-7, 1e-8]), k_max=1e12)
+        np.array([1e-8, 1e-12, 1e-13, 1e-12, 1e-7, 1e-8]), k_max=1e12,
+        **_dev(pkg))
     kw = dict(dict(tspan=(0.0, 10.0), u0={"C": 1.0}, solve_chunks=False,
                    save_interval=0.5, low_k_cutoff="none"), **kw)
     pars = par_m.ODESimulationParams(**kw)
@@ -189,7 +198,7 @@ def _toy_scipy(sd, rd, method, t_eval):
 def test_toy_every_linsolve_and_contraction(linsolve, contraction):
     tm, method, sd, rd = _toy("kinetica_tpu_torch", linsolve=linsolve,
                               rhs_contraction=contraction)
-    out = tm.solve_network(method, sd, rd)
+    out = tm.solve_network(method, sd, rd, device=DEV)
     assert out.sol.success
     ref = _toy_scipy(sd, rd, method, out.sol.t)
     assert np.max(np.abs(out.sol.u - ref)) <= 1e-6
@@ -199,7 +208,7 @@ def test_toy_autodiff_jacobian():
     """``pars.jac=False``: the Newton Jacobian is the forward-mode
     derivative of the mass-action RHS instead of the analytic one."""
     tm, method, sd, rd = _toy("kinetica_tpu_torch", jac=False)
-    out = tm.solve_network(method, sd, rd)
+    out = tm.solve_network(method, sd, rd, device=DEV)
     assert out.sol.success
     assert np.max(np.abs(out.sol.u - _toy_scipy(sd, rd, method,
                                                  out.sol.t))) <= 1e-6
@@ -211,7 +220,7 @@ def test_toy_inv_fused_matches_jax_interpret():
     jm, jmethod, jsd, jrd = _toy("kinetica_tpu", linsolve="inv_fused")
     ref = jm.solve_network(jmethod, jsd, jrd)
     tm, method, sd, rd = _toy("kinetica_tpu_torch", linsolve="inv_fused")
-    out = tm.solve_network(method, sd, rd)
+    out = tm.solve_network(method, sd, rd, device=DEV)
     assert np.max(np.abs(out.sol.u - ref.sol.u)) <= 1e-6
     s_t, s_j = out.sol.stats["n_steps"], ref.sol.stats["n_steps"]
     assert abs(s_t - s_j) <= 0.2 * s_j, (s_t, s_j)
@@ -223,9 +232,9 @@ def test_toy_chunk_warm_start_honoured():
     order 1 from the carried h. Both solve the same ODE."""
     kw = dict(solve_chunks=True, solve_chunkstep=0.5)
     tm, m_warm, sd, rd = _toy("kinetica_tpu_torch", **kw)
-    warm = tm.solve_network(m_warm, sd, rd)
+    warm = tm.solve_network(m_warm, sd, rd, device=DEV)
     _, m_cold, sd, rd = _toy("kinetica_tpu_torch", chunk_warm_start=False, **kw)
-    cold = tm.solve_network(m_cold, sd, rd)
+    cold = tm.solve_network(m_cold, sd, rd, device=DEV)
     ref = _toy_scipy(sd, rd, m_warm, warm.sol.t)
     for res in (warm, cold):
         assert res.sol.success and res.sol.stats["n_chunks"] == 20
@@ -235,7 +244,8 @@ def test_toy_chunk_warm_start_honoured():
 
 def test_toy_return_integrator_solves_a_segment():
     tm, method, sd, rd = _toy("kinetica_tpu_torch")
-    integ = tm.solve_network(method, sd, rd, return_integrator=True)
+    integ = tm.solve_network(method, sd, rd, return_integrator=True,
+                             device=DEV)
     res = integ.solve_segment(0.0, 10.0, [5.0, 10.0])
     assert int(res.status[0]) == 1
     ref = _toy_scipy(sd, rd, method, np.array([5.0, 10.0]))
@@ -245,4 +255,4 @@ def test_toy_return_integrator_solves_a_segment():
 def test_rk45_is_not_ported():
     tm, method, sd, rd = _toy("kinetica_tpu_torch", solver="rk45")
     with pytest.raises(ValueError, match="rk45"):
-        tm.solve_network(method, sd, rd)
+        tm.solve_network(method, sd, rd, device=DEV)
