@@ -31,15 +31,19 @@ Phases 3-4 also hold the kernels on their edge cases
 (``kinetica_tpu_torch.testing.kernel_cases``: Gauss-Jordan at n = 1, 33,
 53, 73, 127, 128 with a pivot tie, a NaN column and a singular member;
 the fused RHS at B = 1 and 64 on a network with an empty and a 700-entry
-species row), and time every kernel three ways
+species row; the Newton solve at n = 1, 31, 32, 33, 73, 181 with b = 0, a
+NaN lane and a stale lane, at B = 4, 1 and 0, and at every cluster size
+the card takes, bit for bit equal to the planned one), and time every
+kernel three ways
 (``kinetica_tpu_torch.testing.device_timing``): ``ms`` (one call between
 CUDA events, host work included), ``graph_ms`` (device only: 20 calls in
 one CUDA graph, replayed) and ``library_ms`` (the one PyTorch call that
 computes the same function, where there is one: timed as ``graph_ms``,
 or over 20 calls back to back where a graph cannot capture it), beside
 ``bound_ms`` (the bytes or the operations of the work at the H100's
-peak rates). The ``kernels`` line also gives each kernel's launches per
-step on each path.
+peak rates); the Newton solve also at B = 1, the single solve's shape.
+The ``kernels`` line also gives each kernel's launches per step on each
+path, and the Newton solve's device ms per step on phases 6, 7 and 9.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA GPU. Exits non-zero, printing no result line, when there is
@@ -161,7 +165,8 @@ def main() -> None:
     from kinetica_tpu_torch.ops.linalg import (_equilibrate, _inv_factor,
                                                _newton_matrix,
                                                newton_schulz_refine)
-    from kinetica_tpu_torch.ops.newton_solve import (fused_newton_solve,
+    from kinetica_tpu_torch.ops.newton_solve import (_device_plan,
+                                                     fused_newton_solve,
                                                      fused_newton_solve_plain)
     from kinetica_tpu_torch.parallel.batching import EnsembleProblem
     from kinetica_tpu_torch.solving.methods import (VariableODESolve,
@@ -173,7 +178,8 @@ def main() -> None:
         bound, dd_work, graph_ms, inverse_work, loop_ms, rhs_work, solve_work)
     from kinetica_tpu_torch.testing.device_timing import event_ms as cuda_ms
     from kinetica_tpu_torch.testing.kernel_cases import (
-        GJ_EDGE_WIDTHS, gj_edge_cases, rhs_edge_network, rhs_rel_err)
+        GJ_EDGE_WIDTHS, NEWTON_EDGE_WIDTHS, gj_edge_cases, mid_ramp_jacobian,
+        newton_check, newton_edge_cases, rhs_edge_network, rhs_rel_err)
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -267,12 +273,7 @@ def main() -> None:
     # one exactly singular member
     u0 = make_u0(sd, pars)
     prof0 = conditions[0].get_profile("T")
-    _, u_mid = scipy_bdf_baseline(sd, rd, calc, prof0, (0.0, TF / 2), u0,
-                                  RTOL, ATOL, best_of=1)
-    jnet = net.to_dtype(torch.float32)
-    T_mid = prof0.X_start + prof0.rate * TF / 2
-    J = jnet.jac_matmul(torch.as_tensor(u_mid, device=dev).float(),
-                        calc(T_mid).float())
+    J = mid_ramp_jacobian(N_CARBONS, dev, TF)
     c = torch.as_tensor(np.logspace(-11, -5.5, BATCH), device=dev)
     JB = J.expand(BATCH, -1, -1).contiguous()
     As, _, _ = _equilibrate(_newton_matrix(JB, c))
@@ -459,17 +460,52 @@ def main() -> None:
         fail(f"newton_solve: per-lane max |d| / max|dy| {lane4:.3e} (n=73), "
              f"{lane4_w:.3e} (n=128); max residual {res4_f:.3e} (n=73), "
              f"stale lane {res4_s:.3e}, {float(res4_w.max()):.3e} (n=128)")
+    # edge cases (kernel_cases.newton_edge_cases at n = 1, 31, 32, 33, 73,
+    # 181: b = 0, a NaN lane, a stale lane that takes every sweep; B = 4, 1
+    # and 0), and on them and on the systems above, every cluster size the
+    # card takes equal bit for bit to the planned one
+    cases4 = {f"n={sd.n} B={BATCH}": (M4, JB, b4, c, None)}
+    for n in NEWTON_EDGE_WIDTHS:
+        *arrays, names = newton_edge_cases(n, seed=n)
+        M_e, J_e, b_e, c_e = (torch.as_tensor(x, device=dev) for x in arrays)
+        for B_e in (len(names), 1, 0):
+            cases4[f"edge n={n} B={B_e}"] = (M_e[:B_e], J_e[:B_e], b_e[:B_e],
+                                             c_e[:B_e], names[:B_e])
+    edge4, sizes4 = 0.0, set()
+    for key, case in cases4.items():
+        res = newton_check(*case)
+        if case[2].shape[0] == 0:
+            if not res["shape_ok"]:
+                fail(f"newton_solve {key}: wrong output shape")
+            continue
+        sizes4 |= set(res["differing"])
+        if not (res["lane_rel"] <= 1e-5 and res["finite"]
+                and res["nan_lanes_nan"]) or any(res["differing"].values()):
+            fail(f"newton_solve {key}: {res}")
+        edge4 = max(edge4, res["lane_rel"])
     ms4 = cuda_ms(lambda: fused_newton_solve(M4, JB, b4, c))
     g4 = graph_ms(lambda: fused_newton_solve(M4, JB, b4, c))
     ms4p = cuda_ms(lambda: fused_newton_solve_plain(M4, JB, b4, c))
     b4_ms, by4 = bound(*solve_work(BATCH, sd.n), "f32")
+    # B = 1 (the single solve of phase 6): the last, freshly factored lane
+    one4 = [x[BATCH - 1:].contiguous() for x in (M4, JB, b4, c)]
+    ms4_1 = cuda_ms(lambda: fused_newton_solve(*one4))
+    g4_1 = graph_ms(lambda: fused_newton_solve(*one4))
+    ms4p_1 = cuda_ms(lambda: fused_newton_solve_plain(*one4))
+    b4_1, by4_1 = bound(*solve_work(1, sd.n), "f32")
+    plan4 = {f"n{sd.n}_b{BATCH}": _device_plan(sd.n, BATCH, dev),
+             f"n{sd.n}_b1": _device_plan(sd.n, 1, dev)}
     say(f"phase 4d newton_solve: B={BATCH} n={sd.n}: per-lane max |d| / "
         f"max|dy| {lane4:.3e} (<= 1e-5), max |b - A dy| / |b| {res4_f:.3e} "
         f"(<= 1e-4; lane {STALE}, M at 1.2 c = {float(c[STALE]):.2e}, "
         f"not bounded: {res4_s:.3e}); n=128: {lane4_w:.3e}, residual "
-        f"{float(res4_w.max()):.3e}; kernel {ms4:.4f} ms, graph {g4:.5f} ms, "
-        f"plain {ms4p:.4f} ms, bound {b4_ms:.5f} ms ({by4}), no single "
-        f"library call")
+        f"{float(res4_w.max()):.3e}; edge cases (b = 0, NaN lane, stale "
+        f"lane; n = {', '.join(map(str, NEWTON_EDGE_WIDTHS))}; B = 4, 1, 0) "
+        f"max {edge4:.3e} (<= 1e-5); cluster sizes {sorted(sizes4)} equal "
+        f"bit for bit; kernel {ms4:.4f} ms, graph {g4:.5f} ms, plain "
+        f"{ms4p:.4f} ms, bound {b4_ms:.5f} ms ({by4}), no single library "
+        f"call | B=1: graph {g4_1:.5f} ms, kernel {ms4_1:.4f} ms, plain "
+        f"{ms4p_1:.4f} ms, bound {b4_1:.6f} ms ({by4_1}); clusters {plan4}")
     kernels["newton_solve"] = {
         "name": "newton_solve", "route": "cuda",
         "source": "kinetica_tpu_torch/csrc/newton_solve.cu",
@@ -477,7 +513,9 @@ def main() -> None:
         "max_abs_err": max_err4, "max_rel_err": lane4, "ms": ms4,
         "graph_ms": g4, "plain_ms": ms4p, "bound_ms": b4_ms, "bound_by": by4,
         "library_ms": None, "library_call": "no single call (inverse "
-        "application, f64-residual refinement, per-lane stop)"}
+        "application, f64-residual refinement, per-lane stop)",
+        "ms_b1": ms4_1, "graph_ms_b1": g4_1, "plain_ms_b1": ms4p_1,
+        "bound_ms_b1": b4_1, "bound_by_b1": by4_1, "cluster_plan": plan4}
 
     # ---- phase 4e: the grid probe ----
     x = torch.ones(grid_probe.ROWS, grid_probe.COLS, device=dev)
@@ -518,12 +556,8 @@ def main() -> None:
     u0_60 = make_u0(sd60, pars60)
     prof60 = conds60[0].get_profile("T")
     t0 = time.perf_counter()
-    _, u_mid60 = scipy_bdf_baseline(sd60, rd60, calc60, prof60, (0.0, TF / 2),
-                                    u0_60, RTOL, ATOL, best_of=1)
+    J60 = mid_ramp_jacobian(WIDE_CARBONS, dev, TF)
     mid60_s = time.perf_counter() - t0
-    J60 = net60.to_dtype(torch.float32).jac_matmul(
-        torch.as_tensor(u_mid60, device=dev).float(),
-        calc60(prof60.X_start + prof60.rate * TF / 2).float())
     J60B = J60.expand(BATCH, -1, -1).contiguous()
     A181 = _newton_matrix(J60B, c)
     n_w = WIDE_N
@@ -562,13 +596,33 @@ def main() -> None:
         dy_p = fused_newton_solve_plain(M_f, J_n, b_n, c_n)
         A_n64 = eye - c_n[:, None, None] * J_n.double()
         _, lane_n, res_n = solve_checks(dy_k, dy_p, A_n64, b_n)
-        if not (lane_n <= 1e-5 and float(res_n.max()) <= 1e-4):
+        sizes_n = newton_check(M_f, J_n, b_n, c_n)["differing"]
+        if not (lane_n <= 1e-5 and float(res_n.max()) <= 1e-4) or any(
+                sizes_n.values()):
             fail(f"newton_solve n={n}: per-lane max |d| / max|dy| "
-                 f"{lane_n:.3e}, max residual {float(res_n.max()):.3e}")
+                 f"{lane_n:.3e}, max residual {float(res_n.max()):.3e}, "
+                 f"entries differing by cluster size {sizes_n}")
         ms_n = cuda_ms(lambda: fused_newton_solve(M_f, J_n, b_n, c_n))
         g_n = graph_ms(lambda: fused_newton_solve(M_f, J_n, b_n, c_n))
         ms_np = cuda_ms(lambda: fused_newton_solve_plain(M_f, J_n, b_n, c_n))
         b_n_ms, by_n = bound(*solve_work(A_n.shape[0], n), "f32")
+        kernels["newton_solve"]["cluster_plan"][f"n{n}_b{A_n.shape[0]}"] = (
+            _device_plan(n, A_n.shape[0], dev))
+        one_n = ""
+        if n == sd60.n:
+            # B = 1 (the single solve of phase 9): the last lane
+            one = [x[-1:].contiguous() for x in (M_f, J_n, b_n, c_n)]
+            g_1 = graph_ms(lambda: fused_newton_solve(*one))
+            b_1, by_1 = bound(*solve_work(1, n), "f32")
+            kernels["newton_solve"].update({
+                f"ms_n{n}_b1": cuda_ms(lambda: fused_newton_solve(*one)),
+                f"graph_ms_n{n}_b1": g_1,
+                f"plain_ms_n{n}_b1": cuda_ms(
+                    lambda: fused_newton_solve_plain(*one)),
+                f"bound_ms_n{n}_b1": b_1, f"bound_by_n{n}_b1": by_1})
+            kernels["newton_solve"]["cluster_plan"][f"n{n}_b1"] = (
+                _device_plan(n, 1, dev))
+            one_n = f"; B=1 graph {g_1:.5f} ms, bound {b_1:.6f} ms ({by_1})"
         kernels["gj_inverse"].update({
             f"ms_n{n}": ms_s, f"graph_ms_n{n}": g_s, f"plain_ms_n{n}": ms_sp,
             f"library_ms_n{n}": lib_s, f"bound_ms_n{n}": b_s,
@@ -582,9 +636,10 @@ def main() -> None:
             f"{g_s:.5f} ms, plain {ms_sp:.4f} ms, torch.linalg.inv_ex "
             f"{lib_s:.5f} ms, bound {b_s:.5f} ms ({by_s}) | newton_solve "
             f"per-lane max |d| / max|dy| {lane_n:.3e} (<= 1e-5), max |b - A dy|"
-            f" / |b| {float(res_n.max()):.3e} (<= 1e-4); kernel {ms_n:.4f} ms, "
+            f" / |b| {float(res_n.max()):.3e} (<= 1e-4), cluster sizes "
+            f"{sorted(sizes_n)} equal bit for bit; kernel {ms_n:.4f} ms, "
             f"graph {g_n:.5f} ms, plain {ms_np:.4f} ms, bound {b_n_ms:.5f} ms "
-            f"({by_n})")
+            f"({by_n}){one_n}")
     # the fused RHS and the contraction at the nc=60 sweep's width (phase 8)
     fused60 = FusedMassActionRHS(net60.N, net60.reac_slots, dev)
     dd60 = DDContraction(net60.N, dev)
@@ -617,6 +672,15 @@ def main() -> None:
         f"{lib60d:.5f} ms, bound {b60d:.5f} ms ({by60d})")
     total = dict.fromkeys(KERNELS, 0)
     per_step = {kname: {} for kname in KERNELS}
+    newton_step_ms = {}
+
+    def newton_device(phase, launches, steps, graph_key):
+        """The Newton-solve kernel's device ms per step on a path: its
+        graph_ms at the path's shape times its launches per step."""
+        newton_step_ms[phase] = (kernels["newton_solve"][graph_key]
+                                 * launches["newton_solve"] / steps)
+        return (f"; newton_solve device {newton_step_ms[phase]:.5f} ms/step "
+                f"({graph_key} x launches/step)")
 
     def record(phase, launches, steps):
         """Add a path's launches; each kernel's launches per step there."""
@@ -698,7 +762,8 @@ def main() -> None:
         f"(accepted {st['n_accepted']}, rejected {st['n_rejected']}, factors "
         f"{st['n_lu']}); {single_s * 1e3 / st['n_steps']:.3f} ms/step; host "
         f"syncs {syncs} ({syncs / st['n_steps']:.2f}/step); launches {launches} "
-        f"({sum(launches.values()) / st['n_steps']:.2f} of these kernels/step)")
+        f"({sum(launches.values()) / st['n_steps']:.2f} of these kernels/step)"
+        + newton_device("6", launches, st['n_steps'], "graph_ms_b1"))
     record("6", launches, st['n_steps'])
 
     # ---- phase 7: the discrete ensemble, inv_fused + dd ----
@@ -743,7 +808,8 @@ def main() -> None:
         f"max/median {s7_max}/{s7_med}; {disc_s * 1e3 / s7_max:.3f} ms/step; "
         f"host syncs {syncs} ({syncs / s7_max:.2f}/step); attempts "
         f"{ens7.stats['attempts']}; launches {launches} "
-        f"({sum(launches.values()) / s7_max:.2f} of these kernels/step)")
+        f"({sum(launches.values()) / s7_max:.2f} of these kernels/step)"
+        + newton_device("7", launches, s7_max, "graph_ms"))
     record("7", launches, s7_max)
 
     # ---- phase 8: the nc=60 continuous sweep (multi-tile), B=64 ----
@@ -836,12 +902,15 @@ def main() -> None:
         f"{st9['n_lu']}); {single9_s * 1e3 / st9['n_steps']:.3f} ms/step; "
         f"host syncs {syncs} ({syncs / st9['n_steps']:.2f}/step); launches "
         f"{launches} ({sum(launches.values()) / st9['n_steps']:.2f} of these "
-        f"kernels/step)")
+        f"kernels/step)"
+        + newton_device("9", launches, st9['n_steps'],
+                        f"graph_ms_n{sd9.n}_b1"))
     record("9", launches, st9['n_steps'])
 
     for kname in KERNELS:
         kernels[kname]["launches"] = total[kname]
         kernels[kname]["launches_per_step"] = per_step[kname]
+    kernels["newton_solve"]["device_ms_per_step"] = newton_step_ms
     say(json.dumps({"kernels": [kernels[k] for k in KERNELS]}))
     say(card)
     say(json.dumps({"ok": True, "device": {

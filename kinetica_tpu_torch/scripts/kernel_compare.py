@@ -1,26 +1,34 @@
-"""Check the Gauss-Jordan, fused-RHS and contraction kernels at the main
-path's shapes, and time them against another version of their sources.
+"""Check the Gauss-Jordan, fused-RHS, contraction and Newton-solve kernels
+at the main path's shapes, and time them against another version of
+their sources.
 
     python -m kinetica_tpu_torch.scripts.kernel_compare [--old DIR] [--out FILE]
 
-Builds ``gj_inverse``, ``fused_rhs`` and ``dd_contract`` from the
-checkout (printing ``ptxas`` registers and spills), holds each against its
-plain version at the shapes of ``chip_smoke.py`` (GJ at n = 73 and 128,
-B = 64; the block-Schur inverse at n = 181, B = 64 and n = 512, B = 8; the
-RHS and the contraction on ``synthetic_pyrolysis_network(24)`` and
-``(60)`` at B = 64) and on the edge cases of
-:mod:`kinetica_tpu_torch.testing.kernel_cases`, then times each shape by
-:func:`~kinetica_tpu_torch.testing.device_timing.graph_ms`.
+Builds ``gj_inverse``, ``fused_rhs``, ``dd_contract`` and
+``newton_solve`` from the checkout (printing ``ptxas`` registers and
+spills), holds each against its plain version at the shapes of
+``chip_smoke.py`` (GJ at n = 73 and 128, B = 64; the block-Schur inverse
+at n = 181, B = 64 and n = 512, B = 8; the RHS and the contraction on
+``synthetic_pyrolysis_network(24)`` and ``(60)`` at B = 64; the Newton
+solve at n = 73 and 181, B = 64 and 1, and n = 512, B = 8) and on the
+edge cases of :mod:`kinetica_tpu_torch.testing.kernel_cases`, then times
+each shape by :func:`~kinetica_tpu_torch.testing.device_timing.graph_ms`.
 
-With ``--old DIR`` (a directory holding other versions of
-``gj_inverse.cu``, ``fused_rhs.cu``, ``dd_contract.cu`` and the headers
-they include, with the same C launch functions, e.g. a parent commit's
+With ``--old DIR`` (a directory holding other versions of the kernels'
+sources and the headers they include, e.g. a parent commit's
 ``kinetica_tpu_torch/csrc`` unpacked by ``git archive``), those are built
-too and every shape is timed old, new, new, old in one process. The
-result is one JSON line on standard output, and in ``--out FILE`` if
-given.
-Inputs are random, made from a seed: the kernels' times do not depend on
-the values.
+too and every shape is timed old, new, new, old in one process. The old
+Newton solve has the one-block-per-lane launch function
+``newton_solve_launch(M, J, b, c, dy, batch, n, n_sweeps, stream)``; the
+new one must equal it bit for bit on every case, and equal itself at
+every cluster size the card takes. The result is one JSON line on
+standard output, and in ``--out FILE`` if given.
+The matrix kernels' inputs are random, made from a seed: their times do
+not depend on the values. The Newton solve's time depends on the sweeps
+its lanes take, so its inputs are the Newton systems of ``chip_smoke.py``
+phases 4d and 4f (the mid-ramp Jacobians of nc = 24 and 60, the main
+path's factor), and the lanes per sweep count are printed, with the
+time at every cluster size and the host time of a call.
 """
 from __future__ import annotations
 
@@ -36,16 +44,20 @@ import numpy as np
 import torch
 
 from ..models.mass_action import build_mass_action
-from ..ops import cuda_build, gj_inverse
+from ..ops import cuda_build, gj_inverse, newton_solve
 from ..ops.dd_contract import DDContraction
 from ..ops.fused_rhs import FusedMassActionRHS
-from ..testing.device_timing import (bound, dd_work, graph_ms, inverse_work,
-                                     rhs_work)
-from ..testing.kernel_cases import (GJ_EDGE_WIDTHS, gj_edge_cases,
-                                    rhs_edge_network, rhs_rel_err)
+from ..ops.linalg import _inv_factor, _newton_matrix
+from ..testing.device_timing import (bound, dd_work, graph_ms, host_us,
+                                     inverse_work, rhs_work, solve_work)
+from ..testing.kernel_cases import (GJ_EDGE_WIDTHS, NEWTON_EDGE_WIDTHS,
+                                    gj_edge_cases, mid_ramp_jacobian,
+                                    newton_check, newton_edge_cases,
+                                    newton_sweeps, rhs_edge_network,
+                                    rhs_rel_err)
 from ..testing.synthetic import synthetic_pyrolysis_network
 
-NAMES = ("gj_inverse", "fused_rhs", "dd_contract")
+NAMES = ("gj_inverse", "fused_rhs", "dd_contract", "newton_solve")
 B = 64
 
 
@@ -114,6 +126,74 @@ def _old_dd(lib, dd: DDContraction):
             _stream()), "old dd_contract")
         return du
     return call
+
+
+def _old_newton(lib):
+    fn = lib.newton_solve_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+    def call(M, J, b, c, n_sweeps=4):
+        dy = torch.empty_like(b)
+        cuda_build.check_launch(fn(
+            M.data_ptr(), J.data_ptr(), b.data_ptr(), c.data_ptr(),
+            dy.data_ptr(), b.shape[0], b.shape[1], n_sweeps, _stream()),
+            "old newton_solve")
+        return dy
+    return call
+
+
+def _newton_cases(dev, rng) -> dict:
+    """name -> (M, J, b, c): the Newton systems the comparison times."""
+    cases = {}
+    c = torch.as_tensor(np.logspace(-11, -5.5, B), device=dev)
+    stale = B // 2                      # M built at 1.2 c, as phase 4d
+    for nc in (24, 60):
+        J = mid_ramp_jacobian(nc, dev).expand(B, -1, -1).contiguous()
+        M = _inv_factor(_newton_matrix(J, c)).contiguous()
+        M[stale] = _inv_factor(_newton_matrix(J[stale:stale + 1],
+                                              1.2 * c[stale:stale + 1]))[0]
+        n = J.shape[1]
+        b = torch.as_tensor(rng.standard_normal((B, n)), device=dev)
+        cases[f"newton_n{n}_b{B}"] = (M, J, b, c)
+        # one fresh lane alone: the single solve's shape (phases 6, 9)
+        cases[f"newton_n{n}_b1"] = tuple(x[B - 1:B].contiguous()
+                                         for x in (M, J, b, c))
+    # n = 512, B = 8: random J at c = 0.025, as chip_smoke.py phase 4f
+    J512 = torch.as_tensor(rng.standard_normal((8, 512, 512)),
+                           device=dev).float().contiguous()
+    c512 = torch.full((8,), 0.025, dtype=torch.float64, device=dev)
+    M512 = _inv_factor(_newton_matrix(J512, c512)).contiguous()
+    b512 = torch.as_tensor(rng.standard_normal((8, 512)), device=dev)
+    cases["newton_n512_b8"] = (M512, J512, b512, c512)
+    return cases
+
+
+def check_newton(dev, cases, old=None) -> dict:
+    """The new Newton-solve kernel against its plain version, and at every
+    cluster size the card takes against the planned one (and the old
+    kernel, if given) bit for bit, on the edge cases and ``cases``;
+    raises on a miss."""
+    every = {}
+    for n in NEWTON_EDGE_WIDTHS:
+        *arrays, names = newton_edge_cases(n, seed=n)
+        M, J, b, c = (torch.as_tensor(x, device=dev) for x in arrays)
+        for B_e in (len(names), 1, 0):
+            every[f"newton_edge_n{n}_b{B_e}"] = (M[:B_e], J[:B_e], b[:B_e],
+                                                 c[:B_e], names[:B_e])
+    every.update({k: (*v, None) for k, v in cases.items()})
+    out = {}
+    for key, (M, J, b, c, names) in every.items():
+        res = newton_check(M, J, b, c, names, old)
+        if b.shape[0] == 0:
+            if not res["shape_ok"]:
+                raise RuntimeError(f"{key}: wrong shape")
+            continue
+        if not (res["lane_rel"] <= 1e-5 and res["finite"]
+                and res["nan_lanes_nan"]) or any(res["differing"].values()):
+            raise RuntimeError(f"{key}: {res}")
+        out[key] = dict(lane_rel=res["lane_rel"],
+                        equal_at=list(res["differing"]))
+    return out
 
 
 def _rel_fro(M, ref):
@@ -204,7 +284,11 @@ def main(argv=None) -> None:
         print(f"new {name}: " + " | ".join(
             ln.strip() for ln in cuda_build.build_info[name]["ptxas"].splitlines()
             if "registers" in ln or "spill" in ln), flush=True)
-    result = {"card": card, "check": check(dev, rng)}
+    libs = _build_old(args.old) if args.old is not None else {}
+    old_newton = _old_newton(libs["newton_solve"]) if libs else None
+    systems = _newton_cases(dev, rng)
+    result = {"card": card, "check": {**check(dev, rng),
+                                      **check_newton(dev, systems, old_newton)}}
     print(f"check passed: {json.dumps(result['check'])}", flush=True)
 
     nets = {}
@@ -217,15 +301,16 @@ def main(argv=None) -> None:
     versions = {"new": dict(
         gj=gj_inverse.gj_inverse,
         fused={nc: v[0] for nc, v in nets.items()},
-        dd={nc: v[1] for nc, v in nets.items()})}
-    if args.old is not None:
-        libs = _build_old(args.old)
+        dd={nc: v[1] for nc, v in nets.items()},
+        newton=newton_solve.fused_newton_solve)}
+    if libs:
         versions["old"] = dict(
             gj=_old_gj(libs["gj_inverse"]),
             fused={nc: _old_fused(libs["fused_rhs"], v[0])
                    for nc, v in nets.items()},
             dd={nc: _old_dd(libs["dd_contract"], v[1])
-                for nc, v in nets.items()})
+                for nc, v in nets.items()},
+            newton=old_newton)
 
     cases = {}
     for n, b in ((73, B), (128, B), (53, B)):
@@ -245,6 +330,43 @@ def main(argv=None) -> None:
         cases[f"dd_contract_nc{nc}_b{B}"] = (
             lambda v, nc=nc, r=r: (lambda: v["dd"][nc](r)),
             bound(*dd_work(dd, B), "f64"))
+    sweeps, by_size = {}, {}
+    for key, (M, J, b, c) in systems.items():
+        taken = newton_sweeps(newton_solve.fused_newton_solve, M, J, b, c)
+        sweeps[key] = {int(k): int((taken == k).sum()) for k in range(1, 5)}
+        cs = newton_solve._device_plan(b.shape[1], b.shape[0], dev)
+        by_size[key] = {
+            size: graph_ms(lambda size=size, a=(M, J, b, c):
+                           newton_solve.launch(*a, 4, size))
+            for size in newton_solve.cluster_sizes(b.shape[1], dev)}
+        held = {size: newton_solve.max_clusters(b.shape[1], size, dev)
+                for size in by_size[key]}
+        print(f"{key}: planned cluster of {cs}; lanes per sweep count "
+              f"{sweeps[key]}; graph_ms by cluster size {by_size[key]}; "
+              f"clusters the card holds at once, by size {held}", flush=True)
+        cases[key] = (lambda v, a=(M, J, b, c): (lambda: v["newton"](*a)),
+                      bound(*solve_work(*b.shape), "f32"))
+    result["newton_sweeps"] = sweeps
+    result["newton_graph_ms_by_cluster_size"] = by_size
+    # the host time of a call: the old launch function called bare
+    # (ctypes), the new one called bare at the planned cluster size, and
+    # the new wrapper with its checks, in turns; the step loop is
+    # host-bound, so a call that costs the host more shows end to end
+    host = {}
+    for key, a in systems.items():
+        cs = newton_solve._device_plan(a[2].shape[1], a[2].shape[0], dev)
+        calls = {"new_launch": lambda a=a, cs=cs: newton_solve.launch(
+                     *a, 4, cs),
+                 "new_wrapper": lambda a=a: newton_solve.fused_newton_solve(
+                     *a)}
+        if old_newton is not None:
+            calls["old_launch"] = lambda a=a: old_newton(*a)
+        runs = {v: [] for v in calls}
+        for v in [*calls, *reversed(calls)]:
+            runs[v].append(host_us(calls[v]))
+        host[key] = runs
+        print(f"{key}: host us per call {runs}", flush=True)
+    result["newton_host_us"] = host
 
     order = ["old", "new", "new", "old"] if "old" in versions else ["new"]
     times = {}

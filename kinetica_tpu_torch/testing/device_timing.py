@@ -8,6 +8,9 @@
 * :func:`loop_ms`: ``n`` calls back to back between CUDA events, divided
   by ``n``: for a call that a graph cannot capture (``torch.linalg.inv``
   synchronises inside), where it is the time a caller waits.
+* :func:`host_us`: the host time of one call in microseconds: ``n``
+  calls enqueued back to back on the host clock, no synchronisation
+  between them (what a host-bound loop pays for the call).
 * :func:`bound`: the larger of the bytes a function must move over the
   memory rate and its operations over the peak rate of their type, on an
   NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense, outside
@@ -86,6 +89,22 @@ def loop_ms(fn, n: int = 20, reps: int = 7, warm: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def host_us(fn, n: int = 200, reps: int = 5, warm: int = 3) -> float:
+    """Median host microseconds of one call of ``fn``, enqueued back to back."""
+    import time
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
     return float(np.median(times))
 
 

@@ -157,3 +157,102 @@ def test_cpu_call_launches_nothing():
     M, J, b, c, _ = _mk(n=6, B=2)
     _port_solve(M, J, b, c)
     assert newton_solve.launches == 0 and grid_probe.launches == 0
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 73, 181])
+@pytest.mark.parametrize("batch", ["four", "one", "empty"])
+def test_edge_cases_match_pallas_interpret(n, batch):
+    """``testing.kernel_cases.newton_edge_cases`` (the cases the card holds
+    the kernel to in ``chip_smoke.py`` phase 4d), at B = 4, 1 and 0: the
+    port within 3e-6 of a lane's max |dy| of the reference, b = 0 gives
+    dy = 0, the NaN lane comes out all NaN and leaves the others
+    untouched, and the stale lane takes all four sweeps."""
+    from kinetica_tpu_torch.ops.newton_solve import fused_newton_solve_plain
+    from kinetica_tpu_torch.testing.kernel_cases import (newton_edge_cases,
+                                                         newton_sweeps)
+    M, J, b, c, names = newton_edge_cases(n, seed=n)
+    B = {"four": len(names), "one": 1, "empty": 0}[batch]
+    M, J, b, c, names = M[:B], J[:B], b[:B], c[:B], names[:B]
+    dy = _port_solve(M, J, b, c)
+    assert dy.shape == (B, n)
+    if B == 0:
+        return
+    dy_ref = _jax_solve(M, J, b, c)
+    finite = [i for i, name in enumerate(names) if name != "nan"]
+    nonzero = [i for i in finite if names[i] != "zero_b"]
+    assert np.all(_lane_err(dy[nonzero], dy_ref[nonzero]) <= 3e-6)
+    assert np.isfinite(dy[finite]).all()
+    if "zero_b" in names:
+        assert np.all(dy[names.index("zero_b")] == 0.0)
+        assert np.all(dy_ref[names.index("zero_b")] == 0.0)
+    if "nan" in names:
+        assert np.isnan(dy[names.index("nan")]).all()
+        assert np.isnan(dy_ref[names.index("nan")]).all()
+        alone = _port_solve(*(x[finite] for x in (M, J, b, c)))
+        np.testing.assert_array_equal(alone, dy[finite])
+    sweeps = newton_sweeps(fused_newton_solve_plain,
+                           *map(torch.as_tensor, (M, J, b, c))).tolist()
+    assert sweeps == [4 if name == "stale" else 1 for name in names]
+
+
+# the card of chip_smoke.py: an H100 SXM (132 SMs, 227 KB of opt-in shared
+# memory a block)
+H100_SMS, H100_SMEM = 132, 232448
+
+
+@pytest.mark.parametrize("B", [1, 8, 64, 256])
+@pytest.mark.parametrize("n", [1, 33, 73, 128, 181, 300, 512])
+def test_cluster_plan(n, B):
+    """The kernel's cluster plan: a size the kernel takes, slabs that fit,
+    rows that cover the lane exactly once, and the sizes of the main
+    path's shapes."""
+    from kinetica_tpu_torch.ops.newton_solve import (CLUSTER_SIZES, WARPS,
+                                                     _cluster_plan,
+                                                     _row_slabs, _rows,
+                                                     _smem_bytes)
+    cs, rows = _cluster_plan(n, B, H100_SMS, H100_SMEM)
+    assert cs in CLUSTER_SIZES
+    slabs = _row_slabs(n, cs)
+    assert max(hi - lo for lo, hi in slabs) == rows
+    assert _smem_bytes(n, rows) <= H100_SMEM
+    covered = np.concatenate([np.arange(lo, hi) for lo, hi in slabs])
+    np.testing.assert_array_equal(covered, np.arange(n))
+    if cs > 1:        # the next smaller size fails a rule
+        smaller = _rows(n, cs // 2)
+        assert (_smem_bytes(n, smaller) > H100_SMEM or B * cs <= H100_SMS
+                and n // cs >= WARPS)
+    expected = {(73, 64): 2, (73, 1): 8, (181, 64): 2, (181, 1): 16,
+                (512, 8): 16}
+    if (n, B) in expected:
+        assert cs == expected[(n, B)]
+
+
+def test_unschedulable_plan_raises(monkeypatch):
+    """A cluster plan the card cannot hold (no cluster fits at once) raises,
+    naming the shape and the card, and is not cached; a plan it holds is
+    cached by shape. The card's answers come from a stand-in library."""
+    import contextlib
+
+    from kinetica_tpu_torch.ops import newton_solve as ns
+
+    class Card:
+        def newton_solve_device_limits(self, sm, smem):
+            sm._obj.value, smem._obj.value = H100_SMS, H100_SMEM
+            return 0
+
+        def newton_solve_max_clusters(self, n, cs, held):
+            held._obj.value = 0 if cs == 16 else 7
+            return 0
+
+    monkeypatch.setattr(ns, "_library", Card)
+    monkeypatch.setattr(ns, "_limits", {})
+    monkeypatch.setattr(ns, "_plans", {})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda idx: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda idx: "Test card")
+    dev = torch.device("cuda", 0)
+    assert ns._device_plan(73, 64, dev) == 2
+    assert ns._plans == {(0, 73, 64): 2}
+    with pytest.raises(RuntimeError, match=r"n = 512, B = 8 .*Test card"):
+        ns._device_plan(512, 8, dev)
+    assert (0, 512, 8) not in ns._plans
