@@ -22,10 +22,30 @@ multi-tile width of ``bench.py`` at ``KINETICA_BENCH_NC=60``):
   through the block-Schur inverse);
 * phase 9: member 0's ramp through ``solve_network``, as phase 6.
 
-Each path is held against a pure-numpy scipy-BDF reference, and every
-kernel of a path must have launched during that path's run (the counts
-are set to 0, and the once-per-process grid probe re-armed, just before
-it).
+The solves built on the BDF core, on the nc=24 network (static
+temperatures, 1e-8 / 1e-10) unless stated:
+
+* phase 10: ``find_steady_state_ensemble`` over 64 temperatures from 700
+  to 950 K (fused RHS, ``inv_gated``), lanes 0, 32 and 63 against
+  scipy-BDF over the same epochs; ``find_steady_state`` for member 0; and
+  ``steady_state_sensitivities`` of a reversible isomerisation against
+  its closed form;
+* phase 11: ``solve_adjoint_gradient`` of u_C1 at 0.05 s and 650 K,
+  against the same call on the CPU (the kernels' plain versions) and the
+  top three reactions against central differences of scipy-BDF; the
+  Gauss-Jordan kernel builds the factors of the forward and the backward
+  solve;
+* phase 12: ``solve_network(solver="rk45")`` on a 3-species chain against
+  the port's BDF solve (the fused RHS in every stage), and 64 van der Pol
+  lanes of ``rk45_solve`` against scipy's RK45;
+* phase 13: phase 7's discrete ensemble and member 0 with
+  ``dtype="float32"`` (the Gauss-Jordan kernel, the plain f32 dot),
+  against phase 7's f64 result.
+
+Each path is held against a pure-numpy scipy-BDF reference (or the
+reference named above), and every kernel of a path must have launched
+during that path's run (the counts are set to 0, and the once-per-process
+grid probe re-armed, just before it).
 
 Phases 3-4 also hold the kernels on their edge cases
 (``kinetica_tpu_torch.testing.kernel_cases``: Gauss-Jordan at n = 1, 33,
@@ -43,7 +63,8 @@ or over 20 calls back to back where a graph cannot capture it), beside
 ``bound_ms`` (the bytes or the operations of the work at the H100's
 peak rates); the Newton solve also at B = 1, the single solve's shape.
 The ``kernels`` line also gives each kernel's launches per step on each
-path, and the Newton solve's device ms per step on phases 6, 7 and 9.
+path (phases 5-13), and the Newton solve's device ms per step on phases
+6, 7 and 9.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA GPU. Exits non-zero, printing no result line, when there is
@@ -150,6 +171,334 @@ def require_launched(phase, launches, names):
 
 def final_err(u, ref):
     return float(np.max(np.abs(u - ref) / max(ref.sum(), 1.0)))
+
+
+def trajectory_err(u, ref):
+    """``final_err`` at every save point of every member: (B, n_t, ns)."""
+    total = np.maximum(ref.sum(axis=-1, keepdims=True), 1.0)
+    return float(np.max(np.abs(u - ref) / total))
+
+
+def static_method(device, T, tf=1.0):
+    """A StaticODESolve of the phase-5 network at ``T`` from C24 alone."""
+    from kinetica_tpu_torch.calculators.builtin import (
+        PrecalculatedArrheniusCalculator)
+    from kinetica_tpu_torch.conditions.condition_set import ConditionSet
+    from kinetica_tpu_torch.solving.methods import StaticODESolve
+    from kinetica_tpu_torch.solving.params import ODESimulationParams
+    from kinetica_tpu_torch.testing.synthetic import synthetic_pyrolysis_network
+
+    sd, rd, Ea, A = synthetic_pyrolysis_network(N_CARBONS)
+    calc = PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX, device=device)
+    pars = ODESimulationParams(tspan=(0.0, tf), u0={f"C{N_CARBONS}": 1.0},
+                               low_k_cutoff="none", abstol=ATOL, reltol=RTOL)
+    return StaticODESolve(pars, ConditionSet({"T": float(T)}), calc), sd, rd
+
+
+def timed_run(fn):
+    """``fn()`` between two device synchronisations -> (result, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_steady_state(dev, counts, record):
+    """Phase 10: steady states of 64 static temperatures in one batched
+    pseudo-transient continuation; three lanes against scipy-BDF of the
+    same ODE (rates on the smooth nonnegative part of u) over the same
+    epochs; member 0 alone; the sensitivities of an interior equilibrium
+    against their closed form."""
+    from kinetica_tpu_torch import constants
+    from kinetica_tpu_torch.calculators.builtin import (
+        PrecalculatedArrheniusCalculator)
+    from kinetica_tpu_torch.conditions.condition_set import ConditionSet
+    from kinetica_tpu_torch.core.network import RxData, SpeciesData
+    from kinetica_tpu_torch.models.mass_action import resolve_clip_delta
+    from kinetica_tpu_torch.solving.methods import StaticODESolve
+    from kinetica_tpu_torch.solving.params import ODESimulationParams
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.solving.steady_state import (
+        find_steady_state, find_steady_state_ensemble,
+        steady_state_sensitivities)
+    from kinetica_tpu_torch.testing.cpu_reference import scipy_bdf_static
+
+    temps = np.linspace(700.0, 950.0, BATCH)
+    method, sd, rd = static_method(dev, temps[0])
+    conds = [ConditionSet({"T": float(T)}) for T in temps]
+    counts.reset()
+    ens, wall = timed_run(lambda: find_steady_state_ensemble(
+        method, sd, rd, conds, device=dev))
+    launches, syncs = counts.read()
+    if not ens.success:
+        fail(f"phase 10: lanes not converged: {np.flatnonzero(~ens.converged)}")
+    if ens.u.shape != (BATCH, sd.n) or not np.all(np.isfinite(ens.u)):
+        fail(f"phase 10: bad steady states {ens.u.shape}")
+    require_launched(10, launches, ("fused_rhs", "gj_inverse", "grid_probe"))
+    horizons = [10.0 ** e for e in range(ens.epochs)]     # t_first 1, x10
+    if abs(sum(horizons) - ens.t_total) > 1e-9 * ens.t_total:
+        fail(f"phase 10: epochs {ens.epochs} do not add up to {ens.t_total}")
+    steps = ens.n_steps.max(axis=1)                     # slowest lane, epoch
+    u0 = make_u0(sd, method.pars)
+    delta = resolve_clip_delta(method.pars)
+    errs = {}
+    t0 = time.perf_counter()
+    for b in (0, BATCH // 2, BATCH - 1):
+        k = method.calculator(float(temps[b])).cpu().numpy()
+        u = u0
+        for T in horizons:
+            u = scipy_bdf_static(sd, rd, k, T, u, RTOL, ATOL, delta)
+        errs[b] = final_err(ens.u[b], u)
+    ref_s = time.perf_counter() - t0
+    if max(errs.values()) > 1e-6:
+        fail(f"phase 10: lanes differ from scipy-BDF: {errs} (> 1e-6)")
+    single, single_s = timed_run(lambda: find_steady_state(
+        method, sd, rd, device=dev))
+    err_single = final_err(single.u, ens.u[0])
+    if not single.converged or err_single > 1e-6:
+        fail(f"phase 10: find_steady_state member 0: converged "
+             f"{single.converged}, vs ensemble lane 0 {err_single:.3e}")
+    # A <=> B at k_f = 3 k_r: du*_B / d ln k_f = k_f k_r / (k_f + k_r)^2
+    sdi = SpeciesData(["C=CC=C", "C#CCC"])
+    rdi = RxData.from_reactions(sdi, [["C=CC=C"], ["C#CCC"]],
+                                [["C#CCC"], ["C=CC=C"]])
+    calci = PrecalculatedArrheniusCalculator(
+        np.zeros(2), np.array([3.0, 1.0]) / constants.N_A, device=dev)
+    parsi = ODESimulationParams(tspan=(0.0, 1.0), u0={"C=CC=C": 1.0},
+                                low_k_cutoff="none")
+    S = steady_state_sensitivities(
+        StaticODESolve(parsi, ConditionSet({"T": 500.0}), calci), sdi, rdi,
+        device=dev)
+    err_S = abs(S[sdi.toInt["C#CCC"], 0] / (3.0 / 16.0) - 1.0)
+    if not err_S <= 1e-6:
+        fail(f"phase 10: isomerisation sensitivity off its closed form by "
+             f"{err_S:.3e} (relative)")
+    total = int(steps.sum())
+    say(f"phase 10 steady-state ensemble: {rd.nr} rxn / {sd.n} sp, B={BATCH} "
+        f"static T {temps[0]:.0f}-{temps[-1]:.0f} K: all converged in "
+        f"{ens.epochs} epochs (t_total {ens.t_total:.6g} s); steps per epoch "
+        f"(slowest lane) {steps.tolist()}, {total} in all; {wall:.3f} s "
+        f"({wall * 1e3 / total:.3f} ms/step); host syncs {syncs} "
+        f"({syncs / total:.2f}/step); max residual {ens.residual.max():.3e};"
+        f" lanes {list(errs)} vs scipy-BDF over the same epochs max "
+        f"mole-fraction err {max(errs.values()):.3e} (scipy {ref_s:.3f} s on "
+        f"this host); find_steady_state member 0: {single.epochs} epochs, "
+        f"{single_s:.3f} s, vs lane 0 {err_single:.3e}; isomerisation "
+        f"du*_B/d ln k_f {S[sdi.toInt['C#CCC'], 0]:.12f} (3/16, rel err "
+        f"{err_S:.2e}); launches {launches} "
+        f"({sum(launches.values()) / total:.2f} of these kernels/step)")
+    record("10", launches, total)
+
+
+# the JAX package's solve_adjoint_gradient on phase 11's problem, on a CPU
+# (its 257-node storage grid): g and the top-5 reactions by |grad|
+JAX_ADJOINT = (1.1205e-6, [872, 0, 145, 144, 926])
+
+
+def phase_adjoint(dev, counts, record):
+    """Phase 11: the adjoint gradient of u_C1(0.05 s) at 650 K w.r.t. every
+    ln k, on the card and with the plain versions on the CPU; the top
+    three against central differences of scipy-BDF."""
+    from kinetica_tpu_torch.models.mass_action import resolve_clip_delta
+    from kinetica_tpu_torch.solving import adjoint
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.testing.cpu_reference import scipy_bdf_static
+
+    T, tf = 650.0, 0.05
+    method, sd, rd = static_method(dev, T, tf)
+    w = np.zeros(sd.n)
+    w[sd.toInt["C1"]] = 1.0
+    counts.reset()
+    (grad, g), wall = timed_run(lambda: adjoint.solve_adjoint_gradient(
+        method, sd, rd, w, n_nodes=257, device=dev))
+    launches, syncs = counts.read()
+    fwd, bwd = adjoint.last_stats["forward"], adjoint.last_stats["backward"]
+    require_launched(11, launches, ("fused_rhs", "gj_inverse", "grid_probe"))
+    # one Gauss-Jordan launch a factor (n <= 128): the backward solve's
+    # factors went through the kernel too
+    if not (bwd["n_lu"] > 0
+            and launches["gj_inverse"] == fwd["n_lu"] + bwd["n_lu"]):
+        fail(f"phase 11: gj_inverse launches {launches['gj_inverse']}, "
+             f"factors forward {fwd['n_lu']} backward {bwd['n_lu']}")
+    if grad.shape != (rd.nr,) or not np.all(np.isfinite(grad)):
+        fail(f"phase 11: bad gradient {grad.shape}")
+    method_c, sd_c, rd_c = static_method("cpu", T, tf)
+    t0 = time.perf_counter()
+    grad_c, g_c = adjoint.solve_adjoint_gradient(method_c, sd_c, rd_c, w,
+                                                 n_nodes=257, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(grad_c).max())
+    d = float(np.abs(grad - grad_c).max())
+    top = [int(j) for j in np.argsort(-np.abs(grad))[:5]]
+    top_c = [int(j) for j in np.argsort(-np.abs(grad_c))[:5]]
+    if not (d <= 1e-3 * scale and top == top_c
+            and abs(g - g_c) <= 1e-6 * abs(g_c)):
+        fail(f"phase 11: card vs CPU: max |d grad| {d:.3e} (max |grad| "
+             f"{scale:.3e}), top-5 {top} vs {top_c}, g {g:.10e} vs {g_c:.10e}")
+    k = method.calculator(T).cpu().numpy()
+    u0 = make_u0(sd, method.pars)
+    fd = {}
+    t0 = time.perf_counter()
+    for j in top[:3]:
+        gs = []
+        for sign in (1.0, -1.0):
+            kj = k.copy()
+            kj[j] *= np.exp(sign * 1e-3)
+            gs.append(float(w @ scipy_bdf_static(
+                sd, rd, kj, tf, u0, 1e-10, 1e-20,
+                resolve_clip_delta(method.pars))))
+        fd[j] = (gs[0] - gs[1]) / 2e-3
+    fd_s = time.perf_counter() - t0
+    fd_rel = {j: abs(grad[j] - v) / abs(v) for j, v in fd.items()}
+    if max(fd_rel.values()) > 0.05:
+        fail(f"phase 11: gradient vs central differences {fd_rel} (> 5%)")
+    steps = fwd["n_steps"] + bwd["n_steps"]
+    say(f"phase 11 adjoint: {rd.nr} rxn / {sd.n} sp, static {T:.0f} K, tf "
+        f"{tf} s, d u_C1(tf) / d ln k: g {g:.10e} (JAX package on a CPU "
+        f"{JAX_ADJOINT[0]:.4e}), max |grad| {scale:.4e}, top-5 {top} (JAX "
+        f"{JAX_ADJOINT[1]}); card vs CPU (plain versions) max |d grad| "
+        f"{d:.3e} (<= 1e-3 max |grad|), same top-5, |d g| / g "
+        f"{abs(g - g_c) / abs(g_c):.2e}; top 3 vs central differences "
+        f"(scipy-BDF rtol 1e-10, 1e-3 in ln k) "
+        + ", ".join(f"{j}: {grad[j]:.5e} vs {fd[j]:.5e} ({fd_rel[j]:.2e})"
+                    for j in fd)
+        + f" (<= 5%); steps forward {fwd['n_steps']} backward "
+        f"{bwd['n_steps']} (factors {fwd['n_lu']} / {bwd['n_lu']}, J "
+        f"evaluations {fwd['n_jev']} / {bwd['n_jev']}); {wall:.3f} s "
+        f"({wall * 1e3 / steps:.3f} ms/step), CPU run {cpu_s:.3f} s, "
+        f"differences {fd_s:.3f} s on this host; host syncs {syncs} "
+        f"({syncs / steps:.2f}/step); launches {launches} "
+        f"({sum(launches.values()) / steps:.2f} of these kernels/step)")
+    record("11", launches, steps)
+
+
+def phase_rk45(dev, counts, record):
+    """Phase 12: solve_network with the RK45 solver on the 3-species chain
+    against the port's BDF solve, and 64 van der Pol lanes of rk45_solve
+    against scipy's RK45."""
+    import torch
+    from scipy.integrate import solve_ivp
+    from kinetica_tpu_torch.calculators.builtin import DummyKineticCalculator
+    from kinetica_tpu_torch.conditions.condition_set import ConditionSet
+    from kinetica_tpu_torch.core.network import RxData, SpeciesData
+    from kinetica_tpu_torch.ops.rk45 import DONE, rk45_solve
+    from kinetica_tpu_torch.solving.methods import StaticODESolve, solve_network
+    from kinetica_tpu_torch.solving.params import ODESimulationParams
+
+    def chain(solver):
+        sd = SpeciesData(["A", "B", "C"])
+        rd = RxData.from_reactions(sd, [["A"], ["B"], ["B", "B"]],
+                                   [["B"], ["A"], ["C"]])
+        pars = ODESimulationParams(
+            tspan=(0.0, 10.0), u0={"A": 1.0}, solver=solver,
+            solve_chunks=True, solve_chunkstep=1.0, reltol=1e-9,
+            abstol=1e-12, low_k_cutoff="none")
+        calc = DummyKineticCalculator(np.array([1.0, 0.5, 0.3]), device=dev)
+        return solve_network(StaticODESolve(pars, ConditionSet({"T": 300.0}),
+                                            calc), sd, rd, device=dev).sol
+
+    counts.reset()
+    sol, wall = timed_run(lambda: chain("rk45"))
+    launches, syncs = counts.read()
+    ref = chain("bdf")
+    if not (sol.success and ref.success) or sol.u.shape != ref.u.shape:
+        fail(f"phase 12: rk45 {sol.retcode}, bdf {ref.retcode}")
+    err = float(np.abs(sol.u - ref.u).max())
+    if err > 1e-7:
+        fail(f"phase 12: rk45 vs bdf max |d u| {err:.3e} (> 1e-7)")
+    st = sol.stats
+    require_launched(12, launches, ("fused_rhs", "grid_probe"))
+    # one RHS a chunk's start and six a step: every stage ran the kernel
+    if (launches["fused_rhs"] != st["n_chunks"] + 6 * st["n_steps"]
+            or launches["gj_inverse"]):
+        fail(f"phase 12: launches {launches} for {st['n_steps']} steps in "
+             f"{st['n_chunks']} chunks")
+
+    def vdp(t, y):
+        return torch.stack([y[:, 1], (1 - y[:, 0] ** 2) * y[:, 1] - y[:, 0]], 1)
+
+    rng = np.random.default_rng(12)
+    y0s = rng.uniform(-2.0, 2.0, (BATCH, 2))
+    y0s[0] = (2.0, 0.0)
+    sv = np.linspace(0.5, 10.0, 20)
+    res, vdp_s = timed_run(lambda: rk45_solve(
+        vdp, torch.as_tensor(y0s, device=dev), 0.0, 10.0, sv, rtol=1e-9,
+        atol=1e-12))
+    ys = res.ys.cpu().numpy()
+    worst = 0.0
+    for b in range(BATCH):
+        sp = solve_ivp(lambda t, y: [y[1], (1 - y[0] ** 2) * y[1] - y[0]],
+                       (0.0, 10.0), y0s[b], rtol=1e-11, atol=1e-13,
+                       t_eval=sv, method="RK45")
+        # the assert_allclose criterion |d| <= atol + rtol |ref|, as a ratio
+        worst = max(worst, float((np.abs(ys[b] - sp.y.T)
+                                  / (1e-7 + 1e-5 * np.abs(sp.y.T))).max()))
+    if not (bool((res.status == DONE).all()) and worst <= 1.0):
+        fail(f"phase 12: van der Pol lanes: status {res.status.tolist()}, "
+             f"worst |d| / (1e-7 + 1e-5 |ref|) {worst:.3e}")
+    n_vdp = res.n_steps.cpu().numpy()
+    say(f"phase 12 rk45: chain A <=> B, 2B -> C through solve_network "
+        f"(chunkwise {st['n_chunks']} x 1 s, rtol 1e-9): DONE; vs the port's "
+        f"bdf max |d u| {err:.3e} (<= 1e-7); steps {st['n_steps']} (accepted "
+        f"{st['n_accepted']}, rejected {st['n_rejected']}); {wall:.3f} s "
+        f"({wall * 1e3 / st['n_steps']:.3f} ms/step); host syncs {syncs}; "
+        f"launches {launches} (the RHS kernel {launches['fused_rhs']} = "
+        f"{st['n_chunks']} + 6 x {st['n_steps']}) | rk45_solve B={BATCH} van "
+        f"der Pol lanes: all DONE, worst |d| / (1e-7 + 1e-5 |scipy|) "
+        f"{worst:.3f} (<= 1); steps max/median {int(n_vdp.max())}/"
+        f"{int(np.median(n_vdp))}; {vdp_s:.3f} s")
+    record("12", launches, st["n_steps"])
+
+
+def phase_float32(dev, counts, record, ens7, pars7, conds7, calc7, sd7, rd7):
+    """Phase 13: phase 7's discrete ensemble and its member 0 with an f32
+    state (abstol 1e-6, reltol 1e-4), against phase 7's f64 result."""
+    import dataclasses
+    from kinetica_tpu_torch.parallel.batching import EnsembleProblem
+    from kinetica_tpu_torch.solving.methods import (VariableODESolve,
+                                                    solve_network)
+
+    pars = dataclasses.replace(pars7, dtype="float32", abstol=1e-6,
+                               reltol=1e-4, linsolve="auto",
+                               rhs_contraction="auto")
+    counts.reset()
+    ens, wall = timed_run(lambda: EnsembleProblem(
+        VariableODESolve(pars, conds7[0], calc7), sd7, rd7, device=dev).solve(
+            conditions_list=conds7))
+    launches, syncs = counts.read()
+    if not ens.success:
+        fail(f"phase 13: not every lane DONE: {ens.retcodes}")
+    if ens.u.shape != ens7.u.shape or not np.all(np.isfinite(ens.u)):
+        fail(f"phase 13: bad solution array {ens.u.shape}")
+    drift = trajectory_err(ens.u, ens7.u)
+    drift_abs = float(np.abs(ens.u - ens7.u).max())
+    if drift > 5e-5:
+        fail(f"phase 13: f32 ensemble vs f64 phase 7 max mole-fraction err "
+             f"{drift:.3e} (> 5e-5)")
+    require_launched(13, launches, ("gj_inverse",))
+    if launches["fused_rhs"] or launches["dd_contract"] or launches["newton_solve"]:
+        fail(f"phase 13: an f64 kernel ran on the f32 path: {launches}")
+    steps = np.asarray(ens.stats["n_steps"])
+    s_max, s_med = int(steps.max()), int(np.median(steps))
+    out, single_s = timed_run(lambda: solve_network(
+        VariableODESolve(pars, conds7[0], calc7), sd7, rd7, device=dev))
+    sol = out.sol
+    drift0 = trajectory_err(sol.u, ens7.u[0]) if sol.success else np.inf
+    if not (sol.success and sol.u.dtype == np.float32) or drift0 > 5e-5:
+        fail(f"phase 13: solve_network f32 {sol.retcode}, dtype "
+             f"{sol.u.dtype}, vs phase 7 member 0 {drift0:.3e} (> 5e-5)")
+    say(f"phase 13 float32 state: phase 7's discrete ensemble, B={BATCH}, "
+        f"abstol 1e-6 reltol 1e-4, inv_gated + the plain f32 dot: all DONE; "
+        f"vs phase 7 (f64) max mole-fraction err {drift:.3e} over every "
+        f"member and save point (<= 5e-5; max |d u| {drift_abs:.3e}); "
+        f"{wall:.3f} s ({wall * 1e3 / s_max:.3f} ms/step); "
+        f"steps max/median {s_max}/{s_med}; host syncs {syncs} "
+        f"({syncs / s_max:.2f}/step); launches {launches} | solve_network "
+        f"member 0 f32: {sol.stats['n_steps']} steps, {single_s:.3f} s, vs "
+        f"phase 7 member 0 max mole-fraction err {drift0:.3e} (<= 5e-5)")
+    record("13", launches, s_max)
 
 
 def main() -> None:
@@ -906,6 +1255,11 @@ def main() -> None:
         + newton_device("9", launches, st9['n_steps'],
                         f"graph_ms_n{sd9.n}_b1"))
     record("9", launches, st9['n_steps'])
+
+    phase_steady_state(dev, counts, record)
+    phase_adjoint(dev, counts, record)
+    phase_rk45(dev, counts, record)
+    phase_float32(dev, counts, record, ens7, pars7, conds7, calc7, sd7, rd7)
 
     for kname in KERNELS:
         kernels[kname]["launches"] = total[kname]

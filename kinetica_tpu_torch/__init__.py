@@ -1,10 +1,15 @@
 """kinetica_tpu_torch: the PyTorch/CUDA port of kinetica_tpu.
 
-The port runs the batched variable-temperature BDF sweep of
-``kinetica_tpu`` on one NVIDIA GPU: host layer copied from the JAX package,
-solver written in PyTorch, and the two hot kernels of that path (the fused
-mass-action RHS and the batched Gauss-Jordan inverse) as CUDA C++ under
-``csrc/``. It never imports jax.
+The port runs the JAX package's stiff mass-action solves on one NVIDIA
+GPU: host layer copied from the JAX package, solvers written in PyTorch,
+and the JAX package's Pallas kernels as five CUDA C++ kernels under
+``csrc/`` (the fused mass-action RHS, the DD contraction, the batched
+Gauss-Jordan inverse, the fused Newton solve and the grid probe). Paths
+it runs: ``solve_network`` (static, continuous and discrete rates,
+complete or chunkwise, BDF or RK45, f64 or f32 state), the batched
+ensemble (``EnsembleProblem``, ``solve_network_ensemble``), steady states
+single and batched with their sensitivities, and the adjoint gradient.
+It never imports jax.
 
 Importing the package sets the float32 matmul precision policy (see
 :mod:`kinetica_tpu_torch.precision`): every f32 product the solver makes
@@ -15,3 +20,59 @@ from .precision import set_precision_policy
 set_precision_policy()
 
 __version__ = "0.1.0"
+
+# Public API shortcuts, resolved lazily as in kinetica_tpu/__init__.py
+_API = {
+    "SpeciesData": "kinetica_tpu_torch.core.network",
+    "RxData": "kinetica_tpu_torch.core.network",
+    "init_network": "kinetica_tpu_torch.core.network",
+    "format_rxn": "kinetica_tpu_torch.core.network",
+    "print_rxn": "kinetica_tpu_torch.core.network",
+    "ConditionSet": "kinetica_tpu_torch.conditions.condition_set",
+    "StaticConditionProfile": "kinetica_tpu_torch.conditions.profiles",
+    "NullDirectProfile": "kinetica_tpu_torch.conditions.profiles",
+    "LinearDirectProfile": "kinetica_tpu_torch.conditions.profiles",
+    "SawtoothDirectProfile": "kinetica_tpu_torch.conditions.profiles",
+    "NullGradientProfile": "kinetica_tpu_torch.conditions.profiles",
+    "LinearGradientProfile": "kinetica_tpu_torch.conditions.profiles",
+    "DoubleRampGradientProfile": "kinetica_tpu_torch.conditions.profiles",
+    "DummyKineticCalculator": "kinetica_tpu_torch.calculators.builtin",
+    "PrecalculatedArrheniusCalculator": "kinetica_tpu_torch.calculators.builtin",
+    "PrecalculatedLindemannCalculator": "kinetica_tpu_torch.calculators.builtin",
+    "ODESimulationParams": "kinetica_tpu_torch.solving.params",
+    "RxFilter": "kinetica_tpu_torch.solving.filters",
+    "StaticODESolve": "kinetica_tpu_torch.solving.methods",
+    "VariableODESolve": "kinetica_tpu_torch.solving.methods",
+    "solve_network": "kinetica_tpu_torch.solving.methods",
+    "ODESolveOutput": "kinetica_tpu_torch.analysis.io",
+    "EnsembleProblem": "kinetica_tpu_torch.parallel.batching",
+    "solve_network_ensemble": "kinetica_tpu_torch.parallel.batching",
+    "solve_adjoint_gradient": "kinetica_tpu_torch.solving.adjoint",
+    "find_steady_state": "kinetica_tpu_torch.solving.steady_state",
+    "find_steady_state_ensemble": "kinetica_tpu_torch.solving.steady_state",
+    "steady_state_sensitivities": "kinetica_tpu_torch.solving.steady_state",
+    "tconvert": "kinetica_tpu_torch.utils",
+    "create_savepoints": "kinetica_tpu_torch.utils",
+}
+
+# Names of kinetica_tpu's table whose modules are not ported yet; they
+# raise AttributeError here (ROADMAP.md, Queue 1)
+NOT_PORTED = (
+    "TSTCalculator", "ASENEBCalculator", "CDE", "DirectExplore",
+    "IterativeExplore", "explore_network", "KPMRun", "KPMBasicCalculator",
+    "KPMCollisionCalculator", "KPMCollisionEntropyCalculator", "save_output",
+    "load_output", "SensitivityProblem", "solve_network_sensitivities",
+    "rank_reactions", "save_sensitivities", "load_sensitivities",
+    "morris_screening", "MorrisResult", "sobol_sensitivity", "SobolResult",
+    "saltelli_design", "sobol_indices_from_values", "reduce_network_drg",
+    "reduce_network_drgep", "drg_adjacency", "drgep_adjacency",
+    "drgep_coefficients", "DRGReductionResult", "reaction_fluxes",
+)
+
+
+def __getattr__(name):
+    if name in _API:
+        import importlib
+        return getattr(importlib.import_module(_API[name]), name)
+    raise AttributeError(
+        f"module 'kinetica_tpu_torch' has no attribute {name!r}")

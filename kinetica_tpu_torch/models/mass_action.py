@@ -133,6 +133,27 @@ class MassActionNetwork(nn.Module):
         (the Newton preconditioner), as the reference's ``jac_matmul``."""
         return self._jac_onehot(u, k)
 
+    def jac_segsum(self, u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        """The same Jacobian as a segment sum over the (reaction, slot)
+        pairs (``jac_form="segsum"``, the reference's ``jac``):
+        J^T[m] = sum_{(j, s): slot_js = m} w_js N[j], by ``index_add_``.
+        On a CUDA device the sum order of ``index_add_`` is not fixed."""
+        dt = self.N.dtype
+        ns, nr, arity = self.ns, self.nr, self.arity
+        u_aug = augment(u, self.delta).to(dt)
+        chain = _clip_pos_grad(u, self.delta).to(dt)
+        su = u_aug[..., self.reac_slots]                   # (..., nr, arity)
+        k = k.to(dt)
+        w = torch.stack([
+            k * torch.prod(su[..., [s2 for s2 in range(arity) if s2 != s]],
+                           dim=-1)
+            for s in range(arity)], dim=-1)                # (..., nr, arity)
+        Y = (self.N[:, None, :] * w[..., None]).reshape(
+            *w.shape[:-2], nr * arity, ns)
+        JT = torch.zeros(*Y.shape[:-2], ns + 1, ns, dtype=dt, device=Y.device)
+        JT.index_add_(JT.ndim - 2, self.reac_slots.reshape(-1), Y)
+        return JT[..., :ns, :].transpose(-1, -2) * chain[..., None, :]
+
     def to_dtype(self, dtype) -> "MassActionNetwork":
         """A copy whose stoichiometry is in ``dtype`` (e.g. the f32 Jacobian net)."""
         return MassActionNetwork(self.reac_slots, self.N.to(dtype), self.delta)

@@ -23,7 +23,9 @@ follows exactly the reference's per-lane algorithm:
 * async-chunk mode (``chunks=``): consecutive chunk-local-time segments
   in one loop, each lane advancing to its next chunk on its own;
 * the warm start of a segmented solve (``first_step``, ``warm_start``):
-  a segment resumes the previous one's step size and method state.
+  a segment resumes the previous one's step size and method state;
+* the state dtype of ``y0`` (f64, or f32 for ``dtype="float32"``
+  solves), with time and step size in f64 either way.
 
 The loop is driven from the host. Its decisions that need device values
 (any lane running, which lanes refactor, whether Newton iterations are
@@ -178,14 +180,16 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
               jac_policy: str = "lazy", lu_drift_tol: float = 0.1,
               prepare: Callable | None = None, args=None,
               chunks: int | None = None, chunk_offsets=None,
-              first_step=None, warm_start=None) -> BDFResults:
+              first_step=None, warm_start=None,
+              on_chunk: Callable | None = None) -> BDFResults:
     """Integrate ``dy/dt = rhs(t, y, pre)`` for a batch of lanes with BDF(1-5).
 
     Args:
       rhs: ``(t (B,), y (B, ns), pre) -> (B, ns)``.
       jac: ``(t, y, pre) -> (B, ns, ns)``; its dtype is the Newton
         Jacobian's (f32 on the main path).
-      y0: (B, ns) initial states; their dtype is the state dtype (f64).
+      y0: (B, ns) initial states; their dtype is the state dtype (f64 or
+        f32; "inv_fused" takes f64 only).
       t0, tf: the integration window (floats; chunk-local in chunk mode).
       saveat: increasing times in (t0, tf] to record; entries <= t0 are
         skipped.
@@ -218,6 +222,10 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         row 0 replaced by ``y0``) instead of restarting at order 1; the
         others start cold. J and the factor are rebuilt at the start
         either way.
+      on_chunk: chunk mode only: called as ``on_chunk(nc)`` with the
+        lowest chunk index of the running lanes (``chunks`` once none
+        runs) after every step. It comes with the loop's one read of the
+        running mask, so it costs no device-to-host read of its own.
     """
     assert_precision_policy()
     if jac_policy not in ("lazy", "always"):
@@ -225,6 +233,10 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
     dev, dtype = y0.device, y0.dtype
     B, ns = y0.shape
     linsolve = resolve_linsolve(linsolve, ns)
+    if linsolve == "inv_fused" and dtype != F64:
+        raise ValueError(f"linsolve='inv_fused' needs an f64 state (its "
+                         f"kernel carries b and dy in f64), got {dtype}; "
+                         f"use 'inv_gated' or 'auto'")
     if linsolve == "inv_fused":
         # the Newton-solve kernel reads J row-major: lay J out so once, where
         # it is evaluated, not at every solve
@@ -618,7 +630,13 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
 
     while True:
         run = s.status == RUNNING
-        if not host_sync.any_true(run):
+        if on_chunk is not None and chunked:
+            going, nc_lo = host_sync.any_true_and_min(
+                run, torch.where(run, s.nc, chunks))
+            on_chunk(nc_lo)
+            if not going:
+                break
+        elif not host_sync.any_true(run):
             break
         step_attempt(run)
         if chunked:

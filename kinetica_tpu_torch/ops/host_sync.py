@@ -24,3 +24,12 @@ def true_indices(mask: torch.Tensor) -> torch.Tensor:
     global count
     count += 1
     return torch.nonzero(mask).squeeze(1)
+
+
+def any_true_and_min(mask: torch.Tensor, values: torch.Tensor):
+    """``(mask.any(), values.min())`` as host values, in one read."""
+    global count
+    count += 1
+    flag, low = torch.stack([mask.any().long(),
+                             values.min().long()]).tolist()
+    return bool(flag), int(low)

@@ -207,7 +207,7 @@ def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def newton_solve(f: NewtonFactors, b: torch.Tensor,
                  method: str = "inv_gated") -> torch.Tensor:
-    """Solve (I - c J) dy = b for (B, n) f64 right-hand sides.
+    """Solve (I - c J) dy = b for (B, n) right-hand sides in the state dtype.
 
     "inv_gated" and "inv": dy = M b through the f32 inverse, then exactly
     two refinement sweeps r = b - (dy - c J dy) (the J matvec in J's
@@ -217,7 +217,9 @@ def newton_solve(f: NewtonFactors, b: torch.Tensor,
     """
     dtype = b.dtype
     if method == "lu":
-        return torch.linalg.lu_solve(f.lu, f.piv, b.unsqueeze(-1)).squeeze(-1)
+        # the f64 factor; an f32 state's b is solved in f64 and cast back
+        return torch.linalg.lu_solve(f.lu, f.piv, b.to(f.lu.dtype).unsqueeze(-1)
+                                     ).squeeze(-1).to(dtype)
     if method == "inv_fused":
         return fused_newton_solve(f.lu.contiguous(),
                                   f.J.to(torch.float32).contiguous(),

@@ -11,6 +11,10 @@ retry with lane compaction.
 * ``rate_mode="continuous"``: each member's profile parameters are packed
   into a theta tensor (:func:`build_condition_sweep_theta`) and the rate
   constants k(T(t, theta)) are evaluated per lane inside the step.
+* ``pars.dtype="float32"`` keeps state, rates and k tables in f32, as
+  :func:`~kinetica_tpu_torch.solving.methods.solve_network` does.
+* ``pars.progress`` logs the chunks every lane has finished, after every
+  ``chunks_per_dispatch`` of them, from the loop's existing reads.
 
 Not ported: the scan/host/group chunk modes (they hide dispatch latency on
 a remote TPU; ``chunk_mode="auto"`` resolves to "async" on every device),
@@ -27,11 +31,13 @@ from ..core.network import RxData, SpeciesData
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.mass_action import build_mass_action, resolve_clip_delta
 from ..ops import bdf
-from ..solving.methods import (VariableODESolve, _chunk_local_stops,
-                               _chunk_save_grid, _jac_dtype, _make_rhs_jac,
-                               _resolve_contraction)
+from ..solving.methods import (VariableODESolve, _check_lu_precision,
+                               _chunk_local_stops, _chunk_save_grid,
+                               _jac_dtype, _make_rhs_jac, _resolve_contraction,
+                               _resolve_jac_form, _state_dtype)
 from ..solving.solutions import EnsembleSolution, retcode_from_status
-from ..solving.solve_utils import calculate_discrete_rates, make_u0
+from ..solving.solve_utils import (calculate_discrete_rates, make_u0,
+                                   resolve_chunks_per_dispatch)
 from ..utils.logging import logger
 
 # per-lane solver counters an ensemble solution reports in its ``stats``
@@ -138,8 +144,7 @@ class EnsembleProblem:
             raise ValueError(
                 "Calculator does not support continuous rate evaluation; "
                 "use rate_mode='discrete'.")
-        if pars.dtype != "float64":
-            raise ValueError("kinetica_tpu_torch solves in float64 only")
+        self.dtype = _state_dtype(pars)
         self.chunk_mode, self.rate_mode = chunk_mode, rate_mode
 
         self.sd, self.rd = sd.copy(), rd.copy()
@@ -150,12 +155,12 @@ class EnsembleProblem:
             calc.splice(ids)
         calc.setup_network(self.sd, self.rd)
 
-        self.dtype = torch.float64
+        _check_lu_precision(pars, self.sd.n)
         self.net = build_mass_action(self.rd, self.sd.n, device=self.device,
                                      dtype=self.dtype,
                                      clip_delta=resolve_clip_delta(pars))
         # Newton Jacobian in f32 (a preconditioner; the Newton fixed point
-        # is anchored by the f64 RHS residual)
+        # is anchored by the RHS residual in the state dtype)
         self.jac_net = self.net.to_dtype(_jac_dtype(pars))
         contraction = _resolve_contraction(self.net, pars)
 
@@ -176,7 +181,8 @@ class EnsembleProblem:
 
         self.rhs, self.jac, self.prepare = _make_rhs_jac(
             self.net, mode, k_fn=k_fn, jac_net=self.jac_net,
-            contraction=contraction, analytic_jac=pars.jac)
+            contraction=contraction, analytic_jac=pars.jac,
+            jac_form=_resolve_jac_form(pars))
         self.chunkstep = pars.solve_chunkstep
         self.saveat_local, self.n_chunks = _chunk_save_grid(pars)
         self.pars = pars
@@ -186,6 +192,18 @@ class EnsembleProblem:
         per-lane counters ``LANE_STATS``)."""
         pars = self.pars
         f64 = dict(dtype=torch.float64, device=self.device)
+        on_chunk = None
+        if pars.progress:
+            group = resolve_chunks_per_dispatch(pars.chunks_per_dispatch,
+                                                self.n_chunks)
+            shown = [0]
+
+            def on_chunk(nc):
+                done = nc if nc == self.n_chunks else nc - nc % group
+                if done > shown[0]:
+                    shown[0] = done
+                    logger.info("   - chunks 1-%d/%d solved on every lane",
+                                done, self.n_chunks)
         res = bdf.bdf_solve(
             self.rhs, self.jac, u0s, 0.0, self.chunkstep,
             torch.as_tensor(self.saveat_local, **f64),
@@ -196,7 +214,8 @@ class EnsembleProblem:
             linsolve=pars.linsolve, jac_policy=pars.jac_policy,
             lu_drift_tol=pars.lu_drift_tol, prepare=self.prepare,
             args=payload, chunks=self.n_chunks,
-            chunk_offsets=torch.arange(self.n_chunks, **f64) * self.chunkstep)
+            chunk_offsets=torch.arange(self.n_chunks, **f64) * self.chunkstep,
+            on_chunk=on_chunk)
         return (res.status.cpu().numpy(), res.ys.cpu().numpy(),
                 {k: getattr(res, k).cpu().numpy() for k in LANE_STATS})
 
@@ -215,6 +234,7 @@ class EnsembleProblem:
         pars = self.pars
         calc = self.method.calculator
         f64 = dict(dtype=torch.float64, device=self.device)
+        fst = dict(dtype=self.dtype, device=self.device)
         if self.rate_mode == "continuous":
             if k_tables is not None or tstops is not None:
                 raise ValueError("k_tables/tstops are discrete-mode inputs")
@@ -263,8 +283,8 @@ class EnsembleProblem:
             stops_rows = torch.as_tensor(
                 _chunk_local_stops(tstops, self.n_chunks, self.chunkstep), **f64)
             payload = (torch.as_tensor(np.asarray(tstops), **f64),
-                       torch.as_tensor(np.ascontiguousarray(k_tables), **f64))
-        u0s_t = torch.as_tensor(np.array(u0s, dtype=np.float64), **f64)
+                       torch.as_tensor(np.ascontiguousarray(k_tables), **fst))
+        u0s_t = torch.as_tensor(np.array(u0s, dtype=np.float64), **fst)
 
         logger.info(" - Solving %d-member ensemble (%d chunks each, %s/%s "
                     "mode) on %s...", B, self.n_chunks, self.chunk_mode,

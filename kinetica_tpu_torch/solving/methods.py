@@ -15,13 +15,18 @@ batch of one lane of the batched BDF (:mod:`kinetica_tpu_torch.ops.bdf`).
   with a left-constant lookup at each step's start, with steps clamped
   at the stops.
 * Continuous mode evaluates k(T(t), ...) at the step's stage time.
+* ``pars.solver="rk45"`` integrates with the explicit Dormand-Prince
+  solver (:mod:`kinetica_tpu_torch.ops.rk45`), the rate lookup folded
+  into every stage.
 
 The port resolves the reference's "auto" choices to its accelerator
-algorithm on every device: the RHS goes through the fused kernel
-(:mod:`kinetica_tpu_torch.ops.fused_rhs`, its plain version on CPU), the
-Newton Jacobian is f32 and the Newton factor "inv_gated" up to 512
-species ("lu" above, as the reference). Not ported: the ``rk45`` solver
-(``pars.solver="rk45"`` raises ``ValueError``).
+algorithm on every device: the RHS of an f64 network goes through the
+fused kernel (:mod:`kinetica_tpu_torch.ops.fused_rhs`, its plain version
+on CPU), the Newton Jacobian is f32 in the one-hot matmul form, and the
+Newton factor "inv_gated" up to 512 species ("lu" above, as the
+reference). A ``dtype="float32"`` solve keeps its state, RHS and rates
+in f32 (the plain f32 dot, as the reference's f32 networks) and its time
+and step size in f64.
 """
 from __future__ import annotations
 
@@ -36,10 +41,11 @@ from ..core.network import RxData, SpeciesData
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.mass_action import (MassActionNetwork, augment,
                                   build_mass_action, resolve_clip_delta)
-from ..ops import bdf
+from ..ops import bdf, rk45
 from ..ops.dd_contract import DDContraction
 from ..ops.fused_rhs import FusedMassActionRHS
 from ..ops.interp import left_constant_lookup
+from ..ops.linalg import resolve_linsolve
 from ..utils.interpolation import TimeSeries
 from ..utils.logging import logger
 from ..utils.time_units import create_savepoints
@@ -47,7 +53,8 @@ from .filters import RxFilter
 from .params import ODESimulationParams
 from .solutions import ODESolution, retcode_from_status
 from .solve_utils import (apply_low_k_cutoff, calculate_discrete_rates,
-                          get_initial_rates, make_u0)
+                          get_initial_rates, make_u0,
+                          resolve_chunks_per_dispatch)
 
 DEFAULT_COMPLETE_SAVEPOINTS = 1000
 STAT_KEYS = ("n_steps", "n_accepted", "n_rejected", "n_fev", "n_jev", "n_lu")
@@ -136,12 +143,19 @@ def _resolve_contraction(net: MassActionNetwork, pars=None):
     "dd": the contraction kernel
     (:class:`~kinetica_tpu_torch.ops.dd_contract.DDContraction`) over
     rates computed in PyTorch; "float64": None, the plain ``net.rhs``
-    (rates and a dense f64 ``r @ N``). Both kernels take any real N, so
-    nothing falls back.
+    (rates and a dense ``r @ N``). Both kernels take any real N, so
+    nothing falls back. An f32 network takes the plain f32 dot under
+    "auto", as the reference's; the kernels are f64, so "fused" and "dd"
+    raise there.
     """
     choice = getattr(pars, "rhs_contraction", "auto") if pars else "auto"
     if choice == "float64":
         return None
+    if net.N.dtype != torch.float64:
+        if choice == "auto":
+            return None
+        raise ValueError(f"rhs_contraction={choice!r} runs an f64 kernel; a "
+                         f"{net.N.dtype} state takes 'auto' or 'float64'")
     if choice in ("auto", "fused"):
         return FusedMassActionRHS(net.N, net.reac_slots, net.N.device)
     if choice == "dd":
@@ -154,8 +168,38 @@ def _jac_dtype(pars) -> torch.dtype:
     return torch.float64 if pars.jac_dtype == "float64" else torch.float32
 
 
+def _state_dtype(pars) -> torch.dtype:
+    """The dtype of the state, RHS and rates: ``pars.dtype``."""
+    if pars.dtype not in ("float64", "float32"):
+        raise ValueError(f"dtype must be 'float64' or 'float32', got "
+                         f"{pars.dtype!r}")
+    return torch.float64 if pars.dtype == "float64" else torch.float32
+
+
+def _resolve_jac_form(pars) -> str:
+    """``pars.jac_form``: "auto" is "matmul" (the one-hot matmul form, the
+    reference's accelerator choice, on every device); "segsum" the
+    segment sum of the reference's ``jac``."""
+    return "matmul" if pars.jac_form == "auto" else pars.jac_form
+
+
+def _check_lu_precision(pars, ns: int) -> None:
+    """``pars.lu_precision``: "mixed" (the default) is what every port
+    factor does, the f32 inverse for the inverse methods and the f64 LU
+    for "lu" (the reference's CPU promotes "mixed" to that); "full" asks
+    for a factor in the state dtype, which only "lu" gives."""
+    if pars.lu_precision not in ("mixed", "full"):
+        raise ValueError(f"lu_precision must be 'mixed' or 'full', got "
+                         f"{pars.lu_precision!r}")
+    linsolve = resolve_linsolve(pars.linsolve, ns)
+    if pars.lu_precision == "full" and linsolve != "lu":
+        raise ValueError(f"lu_precision='full' needs linsolve='lu': the "
+                         f"factor of {linsolve!r} is an f32 inverse")
+
+
 def _make_rhs_jac(net: MassActionNetwork, mode: str, k_fn=None, jac_net=None,
-                  contraction=None, analytic_jac: bool = True):
+                  contraction=None, analytic_jac: bool = True,
+                  jac_form: str = "matmul"):
     """Build ``(rhs, jac, prepare)`` for :func:`bdf.bdf_solve`.
 
     ``prepare(t_stage, t_start, a)`` evaluates the (B, nr) rate constants
@@ -168,8 +212,10 @@ def _make_rhs_jac(net: MassActionNetwork, mode: str, k_fn=None, jac_net=None,
     ``rhs`` runs ``contraction``: the fused kernel on ``u_aug = [clip(u),
     1]``, the contraction kernel on ``net.rates(u, k)``, or ``net.rhs``
     when it is None. ``jac`` is the analytic Jacobian on ``jac_net`` (f32
-    on the main path), or with ``analytic_jac=False`` the forward-mode
-    autodiff Jacobian of the same mass-action RHS.
+    on the main path) in ``jac_form`` ("matmul" or "segsum"), or with
+    ``analytic_jac=False`` the forward-mode autodiff Jacobian of the same
+    mass-action RHS. On a network that is not f64 the rate constants are
+    cast to its dtype.
     """
     jnet = jac_net if jac_net is not None else net
     jdt = jnet.N.dtype
@@ -189,6 +235,12 @@ def _make_rhs_jac(net: MassActionNetwork, mode: str, k_fn=None, jac_net=None,
             return k_fn(t_stage + a[0], a[1])
     else:
         raise ValueError(f"unknown rate mode {mode!r}")
+    if net.N.dtype != torch.float64:
+        prepare_k = prepare
+        sdt = net.N.dtype
+
+        def prepare(t_stage, t_start, a):
+            return prepare_k(t_stage, t_start, a).to(sdt)
 
     if isinstance(contraction, FusedMassActionRHS):
         delta = net.delta
@@ -203,8 +255,10 @@ def _make_rhs_jac(net: MassActionNetwork, mode: str, k_fn=None, jac_net=None,
             return net.rhs(u, k)
 
     if analytic_jac:
+        jac_impl = jnet.jac_segsum if jac_form == "segsum" else jnet.jac_matmul
+
         def jac(t, u, k):
-            return jnet.jac_matmul(u.to(jdt), k.to(jdt))
+            return jac_impl(u.to(jdt), k.to(jdt))
     else:
         def jac(t, u, k):
             return torch.func.vmap(torch.func.jacfwd(jnet.rhs))(
@@ -216,8 +270,25 @@ def _make_rhs_jac(net: MassActionNetwork, mode: str, k_fn=None, jac_net=None,
 def _integrate(pars: ODESimulationParams, rhs, jac, u0, t0, tf, saveat,
                rtol, atol, stops, args, first_step=None, prepare=None,
                warm_start=None):
-    """One BDF segment of a (1, ns) state; returns (status, ys, y_final,
-    stats), with ``h`` and ``warm`` in stats for the chunk carry."""
+    """One segment of a (1, ns) state with ``pars.solver``; returns
+    (status, ys, y_final, stats), with ``h`` (and for BDF ``warm``) in
+    stats for the chunk carry.
+
+    rk45 folds ``prepare`` into the RHS, as its stages run at distinct
+    times, and starts from its automatic initial step: the reference
+    passes it no ``first_step`` either, so the carried h is not used.
+    """
+    if pars.solver == "rk45":
+        def rhs_rk(t, y, a, t_start):
+            return rhs(t, y, prepare(t, t_start, a))
+        res = rk45.rk45_solve(
+            rhs if prepare is None else rhs_rk, u0, t0, tf, saveat,
+            rtol=rtol, atol=atol, stops=stops, max_steps=int(pars.maxiters),
+            nonnegative=pars.ban_negatives, args=args)
+        stats = {k: int(getattr(res, k)[0])
+                 for k in ("n_steps", "n_accepted", "n_rejected", "n_fev")}
+        stats.update(n_jev=0, n_lu=0, h=res.h)
+        return int(res.status[0]), res.ys[0], res.y_final, stats
     res = bdf.bdf_solve(
         rhs, jac, u0, t0, tf, saveat, rtol=rtol, atol=atol, stops=stops,
         max_steps=int(pars.maxiters), nonnegative=pars.ban_negatives,
@@ -344,14 +415,17 @@ def _run_chunkwise(rhs, jac, u0, pars: ODESimulationParams,
                    prepare=None):
     """The chunk loop in local time (the reference's lax.scan over chunks,
     methods.jl:796-847), carrying h and, with ``chunk_warm_start``, the
-    BDF method state from chunk to chunk."""
+    BDF method state from chunk to chunk (rk45 has no method state).
+    With ``pars.progress`` a line is logged after every group of
+    ``chunks_per_dispatch`` chunks."""
     chunkstep = pars.solve_chunkstep
     saveat_local, n_chunks = _chunk_save_grid(pars)
     if global_stops is not None and len(global_stops) > 0:
         stops_rows = _chunk_local_stops(global_stops, n_chunks, chunkstep)
     else:
         stops_rows = np.full((n_chunks, 1), np.inf)
-    use_warm = pars.chunk_warm_start
+    use_warm = pars.chunk_warm_start and pars.solver == "bdf"
+    group = resolve_chunks_per_dispatch(pars.chunks_per_dispatch, n_chunks)
 
     def solve_fn(abstol, reltol):
         u = u0
@@ -373,7 +447,8 @@ def _run_chunkwise(rhs, jac, u0, pars: ODESimulationParams,
             if use_warm:
                 warm = st["warm"]
             ys_parts.append(ys)
-            if pars.progress:
+            if pars.progress and ((nc + 1) % group == 0
+                                  or nc + 1 == n_chunks):
                 logger.info("   - Chunkwise ODE: %d/%d chunks", nc + 1,
                             n_chunks)
             if status != bdf.DONE:
@@ -412,13 +487,10 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
     pars = method.pars
     conditions = method.conditions
     calc = method.calculator
-    if pars.solver != "bdf":
-        raise ValueError(f"solver {pars.solver!r} is not ported "
-                         "(kinetica_tpu_torch has 'bdf')")
-    if pars.dtype != "float64":
-        raise ValueError("kinetica_tpu_torch solves in float64 only")
+    dtype = _state_dtype(pars)
     device = resolve_device(device)
     f64 = dict(dtype=torch.float64, device=device)
+    fst = dict(dtype=dtype, device=device)
 
     if copy_network:
         sd_active, rd_active = sd.copy(), rd.copy()
@@ -451,12 +523,12 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
             "nothing to solve. Check the filter masks, low_k_cutoff and "
             "(for explored networks) the max_molecularity ingestion limit.")
 
+    _check_lu_precision(pars, sd_active.n)
     net = build_mass_action(rd_active, sd_active.n, device=device,
-                            dtype=torch.float64,
-                            clip_delta=resolve_clip_delta(pars))
+                            dtype=dtype, clip_delta=resolve_clip_delta(pars))
     jdt = _jac_dtype(pars)
-    jac_net = net.to_dtype(jdt) if jdt != torch.float64 else None
-    u0 = torch.as_tensor(make_u0(sd_active, pars), **f64)[None]
+    jac_net = net.to_dtype(jdt) if jdt != dtype else None
+    u0 = torch.as_tensor(make_u0(sd_active, pars), **fst)[None]
 
     update_mode = ("discrete" if (is_variable and conditions.discrete_updates)
                    else ("continuous" if is_variable else "static"))
@@ -467,7 +539,7 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
     k_fn = None
     if update_mode == "static":
         payload = torch.as_tensor(get_initial_rates(conditions, calc),
-                                  **f64)[None].contiguous()
+                                  **fst)[None].contiguous()
         global_stops = None
     elif update_mode == "discrete":
         logger.info(" - Pre-calculating rate constants at discrete time intervals.")
@@ -475,7 +547,7 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
                                                    rd_active.nr)
         # one host-to-device copy of the table per solve
         payload = (torch.as_tensor(tstops, **f64),
-                   torch.as_tensor(k_table, **f64))
+                   torch.as_tensor(k_table, **fst))
         global_stops = tstops
         k_series = TimeSeries(tstops, k_table)
     else:
@@ -484,7 +556,8 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
         global_stops = np.asarray(conditions.get_tstops())
     rhs, jac, prepare = _make_rhs_jac(net, update_mode, k_fn=k_fn,
                                       jac_net=jac_net, contraction=contraction,
-                                      analytic_jac=pars.jac)
+                                      analytic_jac=pars.jac,
+                                      jac_form=_resolve_jac_form(pars))
 
     if return_integrator:
         logger.info(" - Returning integrator early.")

@@ -1,10 +1,10 @@
 """Solve-core utilities (counterpart of ``kinetica_tpu/solving/solve_utils.py``).
 
 Ported: :func:`get_max_rates`, :func:`get_initial_rates`,
-:func:`calculate_discrete_rates`, :func:`apply_low_k_cutoff` and
-:func:`make_u0`. Calculators return tensors on their device; these
-functions hand back host numpy arrays, as the reference does. Not ported:
-``insert_inert``.
+:func:`calculate_discrete_rates`, :func:`apply_low_k_cutoff`,
+:func:`make_u0` and :func:`resolve_chunks_per_dispatch`. Calculators
+return tensors on their device; these functions hand back host numpy
+arrays, as the reference does. Not ported: ``insert_inert``.
 """
 from __future__ import annotations
 
@@ -140,3 +140,16 @@ def make_u0(sd: SpeciesData, pars) -> np.ndarray:
                            "Check pars.u0 is correct.")
         u0[sd.toInt[spec]] = conc
     return u0
+
+
+def resolve_chunks_per_dispatch(cpd: int | None, n_chunks: int) -> int:
+    """The chunk-group size of ``pars.chunks_per_dispatch``.
+
+    The reference dispatches its chunk loop to the device in groups of
+    this many chunks (None: 32 on an accelerator) and reports progress
+    between groups; the grouping leaves results bit-equal. The port's
+    loop is driven from the host, so it has no dispatches to group: the
+    group is the number of chunks between two progress lines
+    (``pars.progress``), None giving the reference's accelerator value.
+    """
+    return min(32 if cpd is None else int(cpd), max(n_chunks, 1))

@@ -114,6 +114,38 @@ def scipy_bdf_baseline(sd, rd, calc, profile, tspan, u0, rtol, atol,
     return dt, sol.y[:, -1]
 
 
+def scipy_bdf_static(sd, rd, k, tf, u0, rtol, atol, clip_delta=None):
+    """Static-rate scipy BDF from ``u0`` over [0, tf] under the (nr,)
+    rate vector ``k``; returns the final state.
+
+    With ``clip_delta`` the rates are evaluated on the solver's smooth
+    nonnegative part ``u * sigmoid(u / clip_delta)`` (the Jacobian with
+    its chain factor), so this is the ODE the solver integrates. Near a
+    boundary steady state the plain ODE is unstable: a radical a
+    tolerance below zero feeds its own quadratic consumption, and the
+    solve stops ("required step size is less than spacing")."""
+    from scipy.integrate import solve_ivp
+    from scipy.special import expit
+
+    rhs_f, jac_f = build_numpy_mass_action(sd, rd)
+    k = np.asarray(k, float)
+    rhs, jac = rhs_f(lambda t: k), jac_f(lambda t: k)
+    if clip_delta is not None:
+        rhs_plain, jac_plain = rhs, jac
+
+        def rhs(t, y):
+            return rhs_plain(t, y * expit(y / clip_delta))
+
+        def jac(t, y):
+            x = y / clip_delta
+            s = expit(x)
+            return jac_plain(t, y * s) * (s * (1.0 + x * (1.0 - s)))[None, :]
+    sol = solve_ivp(rhs, (0.0, float(tf)), np.asarray(u0, float),
+                    method="BDF", jac=jac, rtol=rtol, atol=atol)
+    assert sol.success, f"CPU static baseline failed: {sol.message}"
+    return sol.y[:, -1]
+
+
 def scipy_bdf_discrete_baseline(sd, rd, calc, profile, tspan, u0, rtol, atol,
                                 tstops):
     """Discrete-rate scipy BDF: the reference's discrete formalism on CPU.

@@ -53,6 +53,51 @@ def _solve_network_ensemble():
         method, sd, rd, conditions_list=[cs], **kw)
 
 
+def _static_method():
+    from kinetica_tpu_torch.calculators.builtin import (
+        PrecalculatedArrheniusCalculator)
+    from kinetica_tpu_torch.conditions.condition_set import ConditionSet
+    from kinetica_tpu_torch.solving.methods import StaticODESolve
+    from kinetica_tpu_torch.solving.params import ODESimulationParams
+    sd, rd, Ea, A = _network()
+    calc = PrecalculatedArrheniusCalculator(Ea, A, device="cpu")
+    pars = ODESimulationParams(tspan=(0.0, 1.0), u0={"C4": 1.0},
+                               low_k_cutoff="none")
+    return StaticODESolve(pars, ConditionSet({"T": 700.0}), calc), sd, rd
+
+
+def _find_steady_state():
+    from kinetica_tpu_torch.solving.steady_state import find_steady_state
+    method, sd, rd = _static_method()
+    return find_steady_state, lambda **kw: find_steady_state(method, sd, rd,
+                                                             **kw)
+
+
+def _find_steady_state_ensemble():
+    from kinetica_tpu_torch.solving.steady_state import (
+        find_steady_state_ensemble)
+    method, sd, rd = _static_method()
+    return find_steady_state_ensemble, lambda **kw: find_steady_state_ensemble(
+        method, sd, rd, [method.conditions], **kw)
+
+
+def _steady_state_sensitivities():
+    from kinetica_tpu_torch.solving.steady_state import (
+        steady_state_sensitivities)
+    method, sd, rd = _static_method()
+    return steady_state_sensitivities, (
+        lambda **kw: steady_state_sensitivities(method, sd, rd, **kw))
+
+
+def _solve_adjoint_gradient():
+    from kinetica_tpu_torch.solving.adjoint import solve_adjoint_gradient
+    method, sd, rd = _static_method()
+    w = np.zeros(sd.n)
+    w[0] = 1.0
+    return solve_adjoint_gradient, lambda **kw: solve_adjoint_gradient(
+        method, sd, rd, w, **kw)
+
+
 def _dummy():
     from kinetica_tpu_torch.calculators.builtin import DummyKineticCalculator
     return DummyKineticCalculator, lambda **kw: DummyKineticCalculator(
@@ -97,7 +142,16 @@ ENTRY_POINTS = {
     "PrecalculatedLindemannCalculator": _lindemann,
     "build_mass_action": _build_mass_action,
     "MassActionNetwork.from_numpy": _from_numpy,
+    "find_steady_state": _find_steady_state,
+    "find_steady_state_ensemble": _find_steady_state_ensemble,
+    "steady_state_sensitivities": _steady_state_sensitivities,
+    "solve_adjoint_gradient": _solve_adjoint_gradient,
 }
+
+# entry points whose CPU run is a whole solve: covered by their own tests
+SOLVES = ("solve_network", "solve_network_ensemble", "find_steady_state",
+          "find_steady_state_ensemble", "steady_state_sensitivities",
+          "solve_adjoint_gradient")
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
@@ -115,5 +169,5 @@ def test_call_without_device_needs_a_card(name, monkeypatch):
     _, call = ENTRY_POINTS[name]()
     with pytest.raises(RuntimeError, match="CUDA device was requested"):
         call()
-    if name not in ("solve_network", "solve_network_ensemble"):
+    if name not in SOLVES:
         call(device="cpu")

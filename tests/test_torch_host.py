@@ -149,6 +149,12 @@ def test_port_never_imports_jax():
             "kinetica_tpu_torch.solving.solve_utils, "
             "kinetica_tpu_torch.analysis.io\n"
             "import kinetica_tpu_torch.testing.cpu_reference\n"
+            "import kinetica_tpu_torch.ops.rk45, "
+            "kinetica_tpu_torch.solving.steady_state, "
+            "kinetica_tpu_torch.solving.adjoint\n"
+            "kinetica_tpu_torch.solve_network, "
+            "kinetica_tpu_torch.find_steady_state_ensemble, "
+            "kinetica_tpu_torch.solve_adjoint_gradient\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'kinetica_tpu' or m.startswith('kinetica_tpu.')]\n"
             "assert not bad, bad\n"

@@ -253,6 +253,19 @@ def test_toy_return_integrator_solves_a_segment():
 
 
 def test_rk45_is_not_ported():
-    tm, method, sd, rd = _toy("kinetica_tpu_torch", solver="rk45")
-    with pytest.raises(ValueError, match="rk45"):
-        tm.solve_network(method, sd, rd, device=DEV)
+    """The name is historical: ``pars.solver="rk45"`` raised once and now
+    integrates with the explicit Dormand-Prince solver. The toy is stiff
+    (its recombinations run at ~1e5 /s), so the window is 10 ms, about
+    1000 explicit steps, held to scipy-BDF."""
+    from scipy.integrate import solve_ivp
+    from kinetica_tpu_torch.testing.cpu_reference import build_numpy_mass_action
+    tm, method, sd, rd = _toy("kinetica_tpu_torch", solver="rk45",
+                              tspan=(0.0, 0.01), save_interval=0.0025)
+    out = tm.solve_network(method, sd, rd, device=DEV)
+    assert out.sol.success and out.sol.stats["n_lu"] == 0
+    k = method.calculator(900.0).numpy()
+    rhs_f, jac_f = build_numpy_mass_action(sd, rd)
+    ref = solve_ivp(rhs_f(lambda t: k), (0.0, 0.01), out.sol.u[0],
+                    method="BDF", jac=jac_f(lambda t: k), rtol=1e-10,
+                    atol=1e-14, t_eval=out.sol.t).y.T
+    assert np.max(np.abs(out.sol.u - ref)) <= 1e-7
