@@ -42,6 +42,22 @@ temperatures, 1e-8 / 1e-10) unless stated:
   ``dtype="float32"`` (the Gauss-Jordan kernel, the plain f32 dot),
   against phase 7's f64 result.
 
+Forward sensitivities and the analysis layer, on the nc=24 network:
+
+* phase 4g: the kernels' forward-mode rules (the JAX package's
+  ``custom_jvp`` rules) on the card: the tangent through each kernel
+  against the same rule through its plain version, the Newton solve's
+  extra tangent launch, and a dual input into the fused RHS raising;
+* phase 14a: ``SensitivityProblem`` at phase 11's problem with all 1095
+  reactions as tangent lanes, w @ S[-1] against phase 11's adjoint
+  gradient; phase 14b: 64 rids on the 700 -> 1100 K ramp of
+  ``tests/test_sensitivity.py``, u against scipy-BDF and S against
+  central differences of the same solve;
+* phase 15: Morris (B=512) and Sobol (B=640) on the discrete ensemble at
+  phase 11's problem, design points against scipy-BDF;
+* phase 16: DRG and DRGEP reductions, reaction fluxes and the
+  save/load round trip on phase 6's ramp cut to 2 s.
+
 Each path is held against a pure-numpy scipy-BDF reference (or the
 reference named above), and every kernel of a path must have launched
 during that path's run (the counts are set to 0, and the once-per-process
@@ -63,8 +79,9 @@ or over 20 calls back to back where a graph cannot capture it), beside
 ``bound_ms`` (the bytes or the operations of the work at the H100's
 peak rates); the Newton solve also at B = 1, the single solve's shape.
 The ``kernels`` line also gives each kernel's launches per step on each
-path (phases 5-13), and the Newton solve's device ms per step on phases
-6, 7 and 9.
+path (phases 5-16), its forward-mode rule with phase 4g's check, the
+Newton solve's tangent launches in phase 4g and its device ms per step
+on phases 6, 7 and 9.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA GPU. Exits non-zero, printing no result line, when there is
@@ -75,6 +92,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,6 +101,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_CARBONS, BATCH, TF, CHUNK, TS_UPDATE = 24, 64, 14.0, 0.5, 0.1
 WIDE_CARBONS, WIDE_N = 60, 512      # the multi-tile network; the widest inverse
 RTOL, ATOL, K_MAX = 1e-8, 1e-10, 1e12
+# scipy-BDF's tolerances where it is the reference of phases 14-15: at
+# RTOL / ATOL its static 650 K solve is 3.2e-6 mole fraction off its
+# own converged value on the nc=24 network (and slower)
+REF_RTOL, REF_ATOL = 1e-10, 1e-16
 KERNELS = ("fused_rhs", "gj_inverse", "dd_contract", "newton_solve",
            "grid_probe")
 # the yardstick of the inverses: a CUDA graph cannot capture it (it
@@ -372,6 +394,7 @@ def phase_adjoint(dev, counts, record):
         f"({syncs / steps:.2f}/step); launches {launches} "
         f"({sum(launches.values()) / steps:.2f} of these kernels/step)")
     record("11", launches, steps)
+    return grad
 
 
 def phase_rk45(dev, counts, record):
@@ -499,6 +522,429 @@ def phase_float32(dev, counts, record, ens7, pars7, conds7, calc7, sd7, rd7):
         f"member 0 f32: {sol.stats['n_steps']} steps, {single_s:.3f} s, vs "
         f"phase 7 member 0 max mole-fraction err {drift0:.3e} (<= 5e-5)")
     record("13", launches, s_max)
+
+
+def _tangent(fn, primals, tangents):
+    """``fn`` on forward-mode duals -> (primal, tangent) of its result."""
+    from torch.autograd import forward_ad as fwAD
+    with fwAD.dual_level():
+        duals = [p if t is None else fwAD.make_dual(p, t)
+                 for p, t in zip(primals, tangents)]
+        return fwAD.unpack_dual(fn(*duals))
+
+
+def _lane_rel(a, b):
+    """Per-lane max |a - b| / max |b|, the largest over the lanes."""
+    a, b = a.double().flatten(1), b.double().flatten(1)
+    return float(((a - b).abs().amax(dim=1)
+                  / b.abs().amax(dim=1).clamp_min(1e-300)).max())
+
+
+def phase_rules(dev, kernels, rng, inputs):
+    """Phase 4g: each kernel's forward-mode rule on the card (the tangent
+    through the kernel) against the same rule through the plain version,
+    on phase 4's, 4c's, 4d's and 4f's inputs with seeded tangents; a dual
+    input into the fused RHS must raise."""
+    import torch
+    from torch.autograd import forward_ad as fwAD
+    from kinetica_tpu_torch.ops import gj_inverse, linalg, newton_solve
+    from kinetica_tpu_torch.ops.newton_solve import (fused_newton_solve,
+                                                     fused_newton_solve_plain)
+
+    def randn(like):
+        return torch.as_tensor(rng.standard_normal(tuple(like.shape)),
+                               device=dev).to(like.dtype)
+
+    out = {}
+    # rules 1 and 2: (tangent kernel vs plain, vs -M dA M in f64, launches)
+    cases = (("gj_n73", inputs["As"], gj_inverse.gj_inverse,
+              gj_inverse.gj_inverse_plain),
+             ("schur_n181", inputs["As181"], gj_inverse.schur_inverse,
+              gj_inverse.schur_inverse_plain),
+             ("factor_n73", inputs["A4"], linalg._inv_factor,
+              lambda a: linalg._inv_factor(a, gj_inverse.schur_inverse_plain)))
+    for key, A, fn, plain in cases:
+        dA = randn(A)
+        n0 = gj_inverse.launches
+        M, t_k = _tangent(fn, [A], [dA])
+        torch.cuda.synchronize()
+        launched = gj_inverse.launches - n0
+        _, t_p = _tangent(plain, [A], [dA])
+        ref = -(M.double() @ dA.double() @ M.double())
+        out[key] = (_lane_rel(t_k, t_p), _lane_rel(t_k, ref), launched)
+    # rule 3: the Newton solve, B=64 and B=1: one more launch for the tangent
+    M4, JB, b4, c = inputs["newton"]
+    tans = [randn(M4), randn(JB), randn(b4), 0.01 * c * randn(c)]
+    tangent_launches = {}
+    for B in (M4.shape[0], 1):
+        prim = [x[-B:].contiguous() for x in (M4, JB, b4, c)]
+        tan = [x[-B:].contiguous() for x in tans]
+        n0 = newton_solve.launches
+        _, t_k = _tangent(fused_newton_solve, prim, tan)
+        torch.cuda.synchronize()
+        tangent_launches[f"b{B}"] = newton_solve.launches - n0 - 1
+        _, t_p = _tangent(fused_newton_solve_plain, prim, tan)
+        out[f"newton_b{B}"] = (_lane_rel(t_k, t_p), None,
+                               tangent_launches[f"b{B}"])
+    # rule 4: the contraction; its tangent is the dense f64 dr @ N
+    dd, r_c = inputs["dd"]
+    dr = r_c * randn(r_c)
+    _, t_k = _tangent(dd, [r_c], [dr])
+    _, t_p = _tangent(dd.plain, [r_c], [dr])
+    out["dd"] = (float((t_k - t_p).abs().max()),
+                 float((t_k - dr @ dd.N).abs().max()), None)
+    # a dual tensor into the fused RHS (no rule) raises
+    fused, u_aug, k = inputs["fused"]
+    raised = False
+    try:
+        with fwAD.dual_level():
+            fused(u_aug, fwAD.make_dual(k, torch.ones_like(k)))
+    except RuntimeError as exc:
+        raised = "fused_rhs" in str(exc)
+    bad = {kk: v for kk, v in out.items()
+           if not (v[0] <= (0.0 if kk == "dd" else 1e-5)
+                   and (v[1] is None or v[1] <= (0.0 if kk == "dd" else 1e-3)))}
+    Bn = M4.shape[0]
+    if (bad or not raised or tangent_launches != {f"b{Bn}": 1, "b1": 1}
+            or out["gj_n73"][2] != 1 or out["schur_n181"][2] != 2
+            or out["factor_n73"][2] != 1):
+        fail(f"phase 4g forward-mode rules: {out}, tangent launches of the "
+             f"Newton solve {tangent_launches}, fused_rhs raised {raised}")
+    say("phase 4g forward-mode rules, the tangent through the kernel vs "
+        "through the plain version (per-lane max |d| / max |tangent|, <= 1e-5)"
+        " and vs -M dA M in f64 (<= 1e-3): rule 1 gj_inverse n=73 B=64 "
+        f"{out['gj_n73'][0]:.3e} / {out['gj_n73'][1]:.3e}, schur_inverse n=181"
+        f" B=64 {out['schur_n181'][0]:.3e} / {out['schur_n181'][1]:.3e} (the "
+        f"primal's kernel launches only); rule 2 factor n=73 B=64 "
+        f"{out['factor_n73'][0]:.3e} / {out['factor_n73'][1]:.3e}; rule 3 "
+        f"newton_solve B={Bn} {out[f'newton_b{Bn}'][0]:.3e}, B=1 "
+        f"{out['newton_b1'][0]:.3e}, one more kernel launch each for the "
+        f"tangent; rule 4 dd_contract tangent vs the plain version's max |d| "
+        f"{out['dd'][0]:.1e}, vs dr @ N {out['dd'][1]:.1e}; a dual into "
+        f"fused_rhs raised RuntimeError")
+    rules = {
+        "gj_inverse": ("rule 1 (_gj_inverse_jvp, pallas_linalg.py:203) on "
+                       "gj_inverse and schur_inverse; rule 2 (_inv_factor_jvp,"
+                       " linalg.py:198) on the factor: -M dA M",
+                       {key: out[key][:2] for key in
+                        ("gj_n73", "schur_n181", "factor_n73")}),
+        "newton_solve": ("rule 3 (_fused_solve_jvp, pallas_linalg.py:445): "
+                         "one more launch on db + dc J dy + c dJ dy",
+                         {key: out[key][0] for key in
+                          (f"newton_b{Bn}", "newton_b1")}),
+        "dd_contract": ("rule 4 (_make_dd_matmul._jvp, pallas_matmul.py:206)"
+                        ": dr @ N, plain f64", out["dd"][:2]),
+        "fused_rhs": ("none in the reference: a dual input raises", raised),
+        "grid_probe": ("none: a dual input raises", None)}
+    for name, (rule, check) in rules.items():
+        kernels[name]["forward_mode_rule"] = rule
+        kernels[name]["forward_mode_check_4g"] = check
+    kernels["newton_solve"]["tangent_launches_4g"] = tangent_launches
+
+
+def ramp_sensitivity_method(dev):
+    """The variable problem of ``tests/test_sensitivity.py`` at full width:
+    700 -> 1100 K at 100 K/s, rates updated every 0.5 s, 4 s in 8 chunks."""
+    from kinetica_tpu_torch.calculators.builtin import (
+        PrecalculatedArrheniusCalculator)
+    from kinetica_tpu_torch.conditions.condition_set import ConditionSet
+    from kinetica_tpu_torch.conditions.profiles import LinearGradientProfile
+    from kinetica_tpu_torch.solving.methods import VariableODESolve
+    from kinetica_tpu_torch.solving.params import ODESimulationParams
+    from kinetica_tpu_torch.testing.synthetic import synthetic_pyrolysis_network
+
+    sd, rd, Ea, A = synthetic_pyrolysis_network(N_CARBONS)
+    calc = PrecalculatedArrheniusCalculator(Ea, A, k_max=K_MAX, device=dev)
+    cs = ConditionSet({"T": LinearGradientProfile(
+        rate=100.0, X_start=700.0, X_end=1100.0)}, ts_update=0.5)
+    tf = cs.get_t_final()
+    pars = ODESimulationParams(
+        tspan=(0.0, tf), u0={f"C{N_CARBONS}": 1.0}, solve_chunks=True,
+        solve_chunkstep=tf / 8, low_k_cutoff="none", abstol=ATOL, reltol=RTOL)
+    return VariableODESolve(pars, cs, calc), sd, rd
+
+
+def _no_rhs_kernel(phase, launches):
+    """The sensitivity path: the factor's kernel, and no RHS kernel (those
+    have no forward-mode rule; the plain dot runs there)."""
+    require_launched(phase, launches, ("gj_inverse",))
+    if launches["fused_rhs"] or launches["dd_contract"]:
+        fail(f"phase {phase}: an RHS kernel launched on the sensitivity "
+             f"path: {launches}")
+
+
+def phase_sensitivity_static(dev, counts, record, grad11):
+    """Phase 14a: forward sensitivities of phase 11's problem over all its
+    reactions (one tangent lane each), w @ S[-1] against phase 11's
+    adjoint gradient, u against scipy-BDF."""
+    from kinetica_tpu_torch.models.mass_action import resolve_clip_delta
+    from kinetica_tpu_torch.solving.sensitivity import SensitivityProblem
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.testing.cpu_reference import scipy_bdf_static
+
+    T, tf = 650.0, 0.05
+    method, sd, rd = static_method(dev, T, tf)
+    # one segment over [0, tf], as phase 11 integrates it
+    method.pars.solve_chunks = False
+    w = np.zeros(sd.n)
+    w[sd.toInt["C1"]] = 1.0
+    counts.reset()
+    prob = SensitivityProblem(method, sd, rd, device=dev)
+    sens, wall = timed_run(prob.solve)
+    launches, syncs = counts.read()
+    _no_rhs_kernel("14a", launches)
+    st = sens.stats
+    fwd = w @ sens.S[-1]
+    scale = float(np.abs(grad11).max())
+    d = float(np.abs(fwd - grad11).max())
+    top = [int(j) for j in np.argsort(-np.abs(grad11))[:3]]
+    rel3 = {j: abs(fwd[j] - grad11[j]) / abs(grad11[j]) for j in top}
+    k = method.calculator(T).cpu().numpy()
+    ref = scipy_bdf_static(sd, rd, k, tf, make_u0(sd, method.pars),
+                           REF_RTOL, REF_ATOL,
+                           resolve_clip_delta(method.pars))
+    err = final_err(sens.u[-1], ref)
+    if not (d <= 0.02 * scale and max(rel3.values()) <= 0.02 and err <= 1e-6
+            and np.all(np.isfinite(sens.S))):
+        fail(f"phase 14a: w @ S[-1] vs the adjoint gradient max |d| {d:.3e} "
+             f"(max |grad| {scale:.3e}), top 3 {rel3}; u vs scipy-BDF {err:.3e}")
+    steps = st["n_steps"]
+    say(f"phase 14a forward sensitivities: phase 11's problem ({rd.nr} rxn / "
+        f"{sd.n} sp, static {T:.0f} K, tf {tf} s, one segment), "
+        f"rids=None: {st['lanes']} tangent lanes, primal lanes' "
+        f"spread {st['lane_spread']:.1e} (0: bit-equal); w @ S[-1] (u_C1) vs phase 11's "
+        f"adjoint gradient max |d| {d:.3e} = {d / scale:.2e} of max |grad| "
+        f"(<= 2e-2), top 3 "
+        + ", ".join(f"{j}: {fwd[j]:.5e} vs {grad11[j]:.5e} ({rel3[j]:.2e})"
+                    for j in top)
+        + f" (<= 2e-2); u vs scipy-BDF max mole-fraction err {err:.3e}; "
+        f"forward steps {steps} (accepted {st['n_accepted']}, factors "
+        f"{st['n_lu']}, J evaluations {st['n_jev']}); {wall:.3f} s "
+        f"({wall * 1e3 / steps:.3f} ms/step); gj_inverse "
+        f"{launches['gj_inverse'] / steps:.3f} launches/step; host syncs "
+        f"{syncs / steps:.2f}/step; launches {launches}")
+    record("14a", launches, steps)
+
+
+def phase_sensitivity_ramp(dev, counts, record):
+    """Phase 14b: forward sensitivities on the ramp of
+    ``tests/test_sensitivity.py`` at full width, 64 rids; u against the
+    segment-wise scipy-BDF reference, S against central differences of
+    the same solve."""
+    from kinetica_tpu_torch.solving.sensitivity import SensitivityProblem
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.testing.cpu_reference import (
+        scipy_bdf_discrete_baseline)
+
+    method, sd, rd = ramp_sensitivity_method(dev)
+    rids = np.unique(np.concatenate(
+        [[0, 3, 7], np.linspace(10, rd.nr - 1, 61).round().astype(int)]))
+    counts.reset()
+    prob = SensitivityProblem(method, sd, rd, rids=rids, device=dev)
+    sens, wall = timed_run(prob.solve)
+    launches, syncs = counts.read()
+    _no_rhs_kernel("14b", launches)
+    st = sens.stats
+    pars, cs = method.pars, method.conditions
+    t0 = time.perf_counter()
+    ref = scipy_bdf_discrete_baseline(sd, rd, method.calculator,
+                                      cs.get_profile("T"), pars.tspan,
+                                      make_u0(sd, pars), REF_RTOL, REF_ATOL,
+                                      cs.get_tstops())
+    cpu_s = time.perf_counter() - t0
+    err = final_err(sens.u[-1], ref)
+    peak = np.abs(sens.S).max(axis=(0, 1))
+    cols = [0] + [int(j) + 1 for j in np.argsort(-peak[1:])[:2]]
+    eps = 1e-4
+    # +-eps on each column, and a centre lane for the quotient's noise
+    theta = np.zeros((2 * len(cols) + 1, rids.size))
+    for i, col in enumerate(cols):
+        theta[2 * i, col], theta[2 * i + 1, col] = eps, -eps
+    (ys, status), fd_s = timed_run(lambda: prob._solve_theta(theta))
+    ys = ys.cpu().numpy()
+    fd = {}
+    for i, col in enumerate(cols):
+        up, down, mid = ys[2 * i], ys[2 * i + 1], ys[-1]
+        scale = float(np.abs(sens.S[1:, :, col]).max())
+        fd[int(rids[col])] = (
+            float(np.abs(sens.S[1:, :, col] - (up - down) / (2 * eps)).max()
+                  / scale),
+            float(np.abs(up + down - 2 * mid).max() / (2 * eps) / scale),
+            scale)
+    # rid 0 (C2 -> 2 CH3, at k_max from the start) is reported, not held:
+    # its tangent is off its difference quotient by ~100% in the JAX
+    # package too (PERF.md, PR 7); the two largest columns are held
+    held = [int(rids[col]) for col in cols[1:]]
+    if not (rids.size == 64 and err <= 1e-6 and bool((status == 1).all())
+            and all(fd[j][0] <= 5e-3 + fd[j][1] for j in held)
+            and np.all(np.isfinite(sens.S))):
+        fail(f"phase 14b: {rids.size} rids; u vs scipy-BDF {err:.3e}; "
+             f"central differences (rid: err, noise, max|S|) {fd}; statuses "
+             f"{status.tolist()}")
+    steps = st["n_steps"]
+    say(f"phase 14b forward sensitivities on the ramp (700 -> 1100 K at 100 "
+        f"K/s, rates every 0.5 s, tf {pars.tspan[1]} s in {st['n_chunks']} "
+        f"chunks; {rd.nr} rxn / {sd.n} sp): {st['lanes']} tangent lanes (rids "
+        f"0, 3, 7 and 61 evenly spaced), primal lanes' spread "
+        f"{st['lane_spread']:.1e} (0: bit-equal); u vs segment-wise scipy-BDF max "
+        f"mole-fraction err {err:.3e} (<= 1e-6; scipy {cpu_s:.3f} s on this "
+        f"host); S vs central differences (eps {eps}, {theta.shape[0]} lanes "
+        f"of one _solve_theta call, {fd_s:.3f} s) per rid: "
+        + ", ".join(f"{j}: {e:.2e} of max|S| {sc:.3e} (noise {nz:.2e})"
+                    for j, (e, nz, sc) in fd.items())
+        + f" (rids {held}: <= 5e-3 + noise; rid 0 reported); steps {steps} "
+        f"(factors {st['n_lu']}, J "
+        f"evaluations {st['n_jev']}); {wall:.3f} s ({wall * 1e3 / steps:.3f} "
+        f"ms/step); gj_inverse {launches['gj_inverse'] / steps:.3f} "
+        f"launches/step; host syncs {syncs / steps:.2f}/step; launches "
+        f"{launches}")
+    record("14b", launches, steps)
+
+
+def phase_screening(dev, counts, record, grad11):
+    """Phase 15: Morris (phase 11's 63 reactions of largest |grad|, 8
+    trajectories, B=512) and Sobol (its top 8, N=64, B=640) on the discrete
+    ensemble at phase 11's problem; four design points of each against
+    scipy-BDF."""
+    from kinetica_tpu_torch.analysis.screening import morris_screening
+    from kinetica_tpu_torch.analysis.sobol import sobol_sensitivity
+    from kinetica_tpu_torch.models.mass_action import resolve_clip_delta
+    from kinetica_tpu_torch.parallel import batching
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.testing.cpu_reference import scipy_bdf_static
+
+    T, tf = 650.0, 0.05
+    order = np.argsort(-np.abs(grad11))
+    runs = {}
+    solve = batching.EnsembleProblem.solve
+
+    def capture(self, *args, **kw):
+        ens = solve(self, *args, **kw)
+        runs["last"] = (kw["k_tables"], ens)
+        return ens
+
+    batching.EnsembleProblem.solve = capture
+    try:
+        for key, fn, kw in (
+                ("morris", morris_screening,
+                 dict(rids=order[:63], n_trajectories=8)),
+                ("sobol", sobol_sensitivity,
+                 dict(rids=order[:8], n_samples=64))):
+            method, sd, rd = static_method(dev, T, tf)
+            counts.reset()
+            res, wall = timed_run(lambda: fn(method, sd, rd, objective="C1",
+                                             device=dev, **kw))
+            launches, syncs = counts.read()
+            runs[key] = (res, wall, launches, syncs) + runs.pop("last")
+    finally:
+        batching.EnsembleProblem.solve = solve
+    u0 = make_u0(sd, method.pars)
+    delta = resolve_clip_delta(method.pars)
+    lines = []
+    for key, (res, wall, launches, syncs, k_tables, ens) in runs.items():
+        B = k_tables.shape[0]
+        require_launched(f"15 {key}", launches,
+                         ("fused_rhs", "gj_inverse", "grid_probe"))
+        errs = {}
+        for b in (0, B // 3, 2 * B // 3, B - 1):
+            ref = scipy_bdf_static(sd, rd, k_tables[b, 0], tf, u0, REF_RTOL,
+                                   REF_ATOL, delta)
+            errs[b] = final_err(ens.u[b, -1], ref)
+        if not (ens.success and res.failed_points == 0
+                and max(errs.values()) <= 1e-6):
+            fail(f"phase 15 {key}: B={B}, failed points {res.failed_points}, "
+                 f"design points vs scipy-BDF {errs}")
+        steps = int(np.asarray(ens.stats["n_steps"]).max())
+        score = res.mu_star if key == "morris" else res.ST
+        top = [(int(res.rids[j]), float(score[j]))
+               for j in np.argsort(-score)[:5]]
+        lines.append(
+            f"{key} B={B}: all DONE, failed points 0, design points "
+            + ", ".join(f"{b}: {e:.2e}" for b, e in errs.items())
+            + " vs scipy-BDF (<= 1e-6); top 5 by "
+            + ("mu_star " if key == "morris" else "total index ")
+            + ", ".join(f"{j}: {v:.4e}" for j, v in top)
+            + f"; {wall:.3f} s, steps max {steps} ({wall * 1e3 / steps:.3f} "
+            f"ms/step), host syncs {syncs / steps:.2f}/step, launches "
+            f"{launches}")
+        record(f"15_{key}", launches, steps)
+    say("phase 15 Morris and Sobol on the discrete ensemble at phase 11's "
+        "problem (objective u_C1(tf), span 1 decade): " + " | ".join(lines))
+
+
+def phase_analysis(dev, counts, record, tmp):
+    """Phase 16: member 0's ramp of phase 6 cut to 2 s (4 chunks, saves
+    every 0.02 s): DRG and DRGEP reductions for C2e, fluxes, and the
+    save/load round trip."""
+    from kinetica_tpu_torch.analysis.flux import reaction_fluxes
+    from kinetica_tpu_torch.analysis.io import load_output, save_output
+    from kinetica_tpu_torch.analysis.reduction import (reduce_network_drg,
+                                                       reduce_network_drgep)
+    from kinetica_tpu_torch.solving.methods import (VariableODESolve,
+                                                    solve_network)
+
+    tf, tol, ladder = 4 * CHUNK, 1e-5, [0.1, 0.03, 0.01, 0.003]
+    sd, rd, calc, conds, pars = build_problem(
+        dev, tf=tf, linsolve="inv_fused", rhs_contraction="dd",
+        save_interval=0.02)
+    method = VariableODESolve(pars, conds[0], calc)
+    counts.reset()
+    full, full_s = timed_run(lambda: solve_network(method, sd, rd, device=dev))
+    launches, syncs = counts.read()
+    require_launched(16, launches, ("dd_contract", "newton_solve",
+                                    "gj_inverse", "grid_probe"))
+    steps = full.sol.stats["n_steps"]
+    record("16", launches, steps)
+    results = {}
+    for name, fn in (("DRG", reduce_network_drg),
+                     ("DRGEP", reduce_network_drgep)):
+        res, wall = timed_run(lambda: fn(method, sd, rd, targets=["C2e"],
+                                         tol=tol, eps_ladder=ladder,
+                                         full_output=full, device=dev))
+        red = res.reduction
+        if not (res.error <= tol and red.n_reactions < rd.nr):
+            fail(f"phase 16 {name}: error {res.error:.3e} (tol {tol}), "
+                 f"{red.n_reactions}/{rd.nr} reactions; ladder {res.ladder}")
+        results[name] = (res, wall)
+    u = full.sol.u
+    try:
+        reaction_fluxes(full, calc, check=True)
+        trapezoid = "passed its checks"
+    except ValueError as exc:
+        if "startup" not in str(exc):
+            raise
+        trapezoid = "refused (startup guard: an unresolved ignition burst)"
+    flux = reaction_fluxes(full, calc, check=True, attribution="projected")
+    net_err = float(np.abs(flux.net_production - (u[-1] - u[0])).max())
+    if not (net_err <= 1e-8 and np.all(np.isfinite(flux.extent))):
+        fail(f"phase 16 fluxes: net production vs u(tf) - u(0) {net_err:.3e}")
+    path = os.path.join(tmp, "phase16.npz")
+    save_output(full, path)
+    back = load_output(path)
+    same = (np.array_equal(back.sol.t, full.sol.t)
+            and np.array_equal(back.sol.u, full.sol.u)
+            and set(back.sol.vcs) == set(full.sol.vcs)
+            and all(np.array_equal(back.sol.vcs[k], v)
+                    for k, v in full.sol.vcs.items())
+            and back.rd.nr == rd.nr and back.sd.toInt == full.sd.toInt
+            and vars(back.pars) == vars(full.pars))
+    if not same:
+        fail("phase 16: save_output -> load_output is not bit for bit")
+    say(f"phase 16 analysis: phase 6's member 0 cut to tf {tf} s "
+        f"({tf / CHUNK:.0f} chunks, saves every 0.02 s; {rd.nr} rxn / {sd.n} "
+        f"sp): full solve {full_s:.3f} s, {steps} steps; "
+        + "; ".join(
+            f"{n} for C2e (eps ladder {ladder}, tol {tol}): accepted eps "
+            f"{r.reduction.eps:g}, {r.reduction.n_reactions}/{rd.nr} "
+            f"reactions, {r.reduction.n_species}/{sd.n} species, error "
+            f"{r.error:.3e}; ladder "
+            + ", ".join(f"{e:g}: {nr} rxn {er:.2e}" for e, _, nr, er in r.ladder)
+            + f" ({w:.3f} s)" for n, (r, w) in results.items())
+        + f"; reaction_fluxes: trapezoid {trapezoid}; projected net "
+        f"production vs u(tf) - u(0) {net_err:.3e} (<= 1e-8), top extents "
+        f"{[(j, float(f'{v:.6g}')) for j, v in flux.top(3)]}; save_output -> "
+        f"load_output bit for bit; launches {launches} "
+        f"({sum(launches.values()) / steps:.2f}/step)")
 
 
 def main() -> None:
@@ -1019,6 +1465,15 @@ def main() -> None:
         f"equal bit for bit; fused_rhs graph {g60:.5f} ms, bound {b60:.5f} ms "
         f"({by60}); dd_contract graph {g60d:.5f} ms, r @ N (dense f64) "
         f"{lib60d:.5f} ms, bound {b60d:.5f} ms ({by60d})")
+    # ---- phase 4g: the four forward-mode rules through the kernels ----
+    t0 = time.perf_counter()
+    phase_rules(dev, kernels, rng, {
+        "As": _equilibrate(_newton_matrix(JB, c))[0].contiguous(),
+        "As181": _equilibrate(A181)[0].contiguous(), "A4": A4,
+        "newton": (M4, JB, b4, c), "dd": (dd, r_c),
+        "fused": (fused, u_aug, k)})
+    new_phases_s = time.perf_counter() - t0
+
     total = dict.fromkeys(KERNELS, 0)
     per_step = {kname: {} for kname in KERNELS}
     newton_step_ms = {}
@@ -1257,9 +1712,19 @@ def main() -> None:
     record("9", launches, st9['n_steps'])
 
     phase_steady_state(dev, counts, record)
-    phase_adjoint(dev, counts, record)
+    grad11 = phase_adjoint(dev, counts, record)
     phase_rk45(dev, counts, record)
     phase_float32(dev, counts, record, ens7, pars7, conds7, calc7, sd7, rd7)
+
+    # ---- phases 14-16: forward sensitivities and the analysis layer ----
+    t0 = time.perf_counter()
+    phase_sensitivity_static(dev, counts, record, grad11)
+    phase_sensitivity_ramp(dev, counts, record)
+    phase_screening(dev, counts, record, grad11)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_analysis(dev, counts, record, tmp)
+    new_phases_s += time.perf_counter() - t0
+    say(f"phases 4g and 14-16: {new_phases_s:.1f} s on this card")
 
     for kname in KERNELS:
         kernels[kname]["launches"] = total[kname]

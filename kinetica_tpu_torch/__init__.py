@@ -8,8 +8,10 @@ Gauss-Jordan inverse, the fused Newton solve and the grid probe). Paths
 it runs: ``solve_network`` (static, continuous and discrete rates,
 complete or chunkwise, BDF or RK45, f64 or f32 state), the batched
 ensemble (``EnsembleProblem``, ``solve_network_ensemble``), steady states
-single and batched with their sensitivities, and the adjoint gradient.
-It never imports jax.
+single and batched with their sensitivities, the adjoint gradient, the
+forward sensitivities (tangents through the kernels' forward-mode
+rules) and the analysis layer (save/load, fluxes, Morris, Sobol,
+DRG/DRGEP, graph export, plots). It never imports jax.
 
 Importing the package sets the float32 matmul precision policy (see
 :mod:`kinetica_tpu_torch.precision`): every f32 product the solver makes
@@ -45,6 +47,26 @@ _API = {
     "VariableODESolve": "kinetica_tpu_torch.solving.methods",
     "solve_network": "kinetica_tpu_torch.solving.methods",
     "ODESolveOutput": "kinetica_tpu_torch.analysis.io",
+    "save_output": "kinetica_tpu_torch.analysis.io",
+    "load_output": "kinetica_tpu_torch.analysis.io",
+    "SensitivityProblem": "kinetica_tpu_torch.solving.sensitivity",
+    "solve_network_sensitivities": "kinetica_tpu_torch.solving.sensitivity",
+    "rank_reactions": "kinetica_tpu_torch.solving.sensitivity",
+    "save_sensitivities": "kinetica_tpu_torch.solving.sensitivity",
+    "load_sensitivities": "kinetica_tpu_torch.solving.sensitivity",
+    "morris_screening": "kinetica_tpu_torch.analysis.screening",
+    "MorrisResult": "kinetica_tpu_torch.analysis.screening",
+    "sobol_sensitivity": "kinetica_tpu_torch.analysis.sobol",
+    "SobolResult": "kinetica_tpu_torch.analysis.sobol",
+    "saltelli_design": "kinetica_tpu_torch.analysis.sobol",
+    "sobol_indices_from_values": "kinetica_tpu_torch.analysis.sobol",
+    "reduce_network_drg": "kinetica_tpu_torch.analysis.reduction",
+    "reduce_network_drgep": "kinetica_tpu_torch.analysis.reduction",
+    "drg_adjacency": "kinetica_tpu_torch.analysis.reduction",
+    "drgep_adjacency": "kinetica_tpu_torch.analysis.reduction",
+    "drgep_coefficients": "kinetica_tpu_torch.analysis.reduction",
+    "DRGReductionResult": "kinetica_tpu_torch.analysis.reduction",
+    "reaction_fluxes": "kinetica_tpu_torch.analysis.flux",
     "EnsembleProblem": "kinetica_tpu_torch.parallel.batching",
     "solve_network_ensemble": "kinetica_tpu_torch.parallel.batching",
     "solve_adjoint_gradient": "kinetica_tpu_torch.solving.adjoint",
@@ -60,13 +82,7 @@ _API = {
 NOT_PORTED = (
     "TSTCalculator", "ASENEBCalculator", "CDE", "DirectExplore",
     "IterativeExplore", "explore_network", "KPMRun", "KPMBasicCalculator",
-    "KPMCollisionCalculator", "KPMCollisionEntropyCalculator", "save_output",
-    "load_output", "SensitivityProblem", "solve_network_sensitivities",
-    "rank_reactions", "save_sensitivities", "load_sensitivities",
-    "morris_screening", "MorrisResult", "sobol_sensitivity", "SobolResult",
-    "saltelli_design", "sobol_indices_from_values", "reduce_network_drg",
-    "reduce_network_drgep", "drg_adjacency", "drgep_adjacency",
-    "drgep_coefficients", "DRGReductionResult", "reaction_fluxes",
+    "KPMCollisionCalculator", "KPMCollisionEntropyCalculator",
 )
 
 

@@ -136,8 +136,11 @@ class MassActionNetwork(nn.Module):
     def jac_segsum(self, u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         """The same Jacobian as a segment sum over the (reaction, slot)
         pairs (``jac_form="segsum"``, the reference's ``jac``):
-        J^T[m] = sum_{(j, s): slot_js = m} w_js N[j], by ``index_add_``.
-        On a CUDA device the sum order of ``index_add_`` is not fixed."""
+        J^T[m] = sum_{(j, s): slot_js = m} w_js N[j], in (j, s) order on
+        either device: ``index_add_`` on the CPU, and on a CUDA device the
+        sorted accumulation of ``index_put_(accumulate=True)`` (a stable
+        sort), where ``index_add_`` would add in the atomics' order and
+        identical lanes could round apart."""
         dt = self.N.dtype
         ns, nr, arity = self.ns, self.nr, self.arity
         u_aug = augment(u, self.delta).to(dt)
@@ -151,7 +154,12 @@ class MassActionNetwork(nn.Module):
         Y = (self.N[:, None, :] * w[..., None]).reshape(
             *w.shape[:-2], nr * arity, ns)
         JT = torch.zeros(*Y.shape[:-2], ns + 1, ns, dtype=dt, device=Y.device)
-        JT.index_add_(JT.ndim - 2, self.reac_slots.reshape(-1), Y)
+        slots = self.reac_slots.reshape(-1)
+        if Y.device.type == "cuda":
+            JT = JT.movedim(-2, 0).index_put_(
+                (slots,), Y.movedim(-2, 0), accumulate=True).movedim(0, -2)
+        else:
+            JT.index_add_(JT.ndim - 2, slots, Y)
         return JT[..., :ns, :].transpose(-1, -2) * chain[..., None, :]
 
     def to_dtype(self, dtype) -> "MassActionNetwork":

@@ -17,6 +17,10 @@ by reaction (:func:`species_csr`); the kernel and
 :mod:`~kinetica_tpu_torch.ops.fused_rhs` sum those rows in that order.
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs :func:`dd_contract_plain`.
+
+Forward mode carries the reference's rule 4 (``_make_dd_matmul._jvp``):
+the contraction is linear, so the tangent is ``dr @ N``, a plain dense
+f64 product, on either device.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 
 from .cuda_build import check_launch, load_library
 from .grid_probe import ensure_grid_supported
+from .jvp import has_tangent
 
 # kernel launches since the last reset (the plain path never counts)
 launches = 0
@@ -98,6 +103,8 @@ class DDContraction:
             check_smem(8 * self.nr, "dd_contract")
         ensure_grid_supported(self.device)
         self.csr = species_csr(Nh, self.device)
+        # the dense N of rule 4's tangent
+        self.N = torch.as_tensor(Nh, dtype=torch.float64, device=self.device)
 
     def _check(self, r: torch.Tensor) -> None:
         if r.dtype != torch.float64:
@@ -114,6 +121,11 @@ class DDContraction:
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         """(B, nr) f64 rates -> (B, ns) f64 du."""
         self._check(r)
+        if has_tangent(r):
+            return _ContractionRule.apply(r, self._contract, self.N)
+        return self._contract(r)
+
+    def _contract(self, r: torch.Tensor) -> torch.Tensor:
         if r.device.type == "cpu":
             return dd_contract_plain(r, self.csr, self.ns)
         if r.device.type != "cuda":
@@ -132,9 +144,28 @@ class DDContraction:
         return du
 
     def plain(self, r: torch.Tensor) -> torch.Tensor:
-        """The plain PyTorch version on any device (for comparisons)."""
+        """The plain PyTorch version on any device (for comparisons), with
+        rule 4 on a dual ``r``."""
         self._check(r)
+        if has_tangent(r):
+            return _ContractionRule.apply(r, self._plain, self.N)
+        return self._plain(r)
+
+    def _plain(self, r: torch.Tensor) -> torch.Tensor:
         return dd_contract_plain(r, self.csr, self.ns)
+
+
+class _ContractionRule(torch.autograd.Function):
+    """Rule 4: the primal from ``contract``, the tangent ``dr @ N``."""
+
+    @staticmethod
+    def forward(ctx, r, contract, N):
+        ctx.N = N
+        return contract(r)
+
+    @staticmethod
+    def jvp(ctx, dr, *_):
+        return dr @ ctx.N
 
 
 def _library() -> ctypes.CDLL:

@@ -23,7 +23,9 @@ Differences from the reference, on purpose:
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs :func:`fused_rhs_plain`, the plain PyTorch version of the
-same function.
+same function. The reference registers no forward-mode rule for this
+kernel, so a dual input raises ``RuntimeError`` on either device rather
+than losing its tangent (the sensitivity solve uses the plain dot).
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from .cuda_build import check_launch, load_library
 from .dd_contract import (SpeciesCSR, check_smem, dd_contract_plain,
                           host_stoichiometry, species_csr)
 from .grid_probe import ensure_grid_supported
+from .jvp import refuse_tangent
 
 # kernel launches since the last reset (the plain path never counts)
 launches = 0
@@ -98,6 +101,7 @@ class FusedMassActionRHS:
     def __call__(self, u_aug: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         """(B, ns+1) f64 clipped-augmented u and (B, nr) f64 k -> (B, ns) f64."""
         self._check(u_aug, k)
+        refuse_tangent("fused_rhs", u_aug, k)
         if u_aug.device.type == "cpu":
             return fused_rhs_plain(u_aug, k, self._slots64, self.csr, self.ns)
         if u_aug.device.type != "cuda":

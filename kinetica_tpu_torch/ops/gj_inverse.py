@@ -19,6 +19,12 @@ registers, 32 floats a thread). Wider systems, up to 512, go through
 :func:`schur_inverse`, the reference's block-Schur composition
 (``pallas_linalg.py::schur_inverse``): Gauss-Jordan kernel launches on
 the diagonal blocks, f32 matrix products for the coupling terms.
+
+Forward mode: both inverses carry the reference's rule
+(``_gj_inverse_jvp``), d(A^-1) = -M dA M with M the computed inverse, on
+either device. The reference's Schur gets its tangent by composing the
+rule with its matmuls; the port's calls the kernel through ctypes, so it
+carries the rule itself.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import ctypes
 import torch
 
 from .cuda_build import check_launch, load_library
+from .jvp import has_tangent, inverse_tangent
 
 MAX_N = 128
 MAX_SCHUR_N = 512
@@ -51,7 +58,12 @@ def _check(A: torch.Tensor) -> None:
 
 
 def gj_inverse_plain(A: torch.Tensor) -> torch.Tensor:
-    """The kernel's elimination as a batched column loop (any device)."""
+    """The kernel's elimination as a batched column loop (any device),
+    with rule 1 on a dual input."""
+    return _with_rule(A, _gj_plain)
+
+
+def _gj_plain(A: torch.Tensor) -> torch.Tensor:
     B, n, _ = A.shape
     dev = A.device
     eye = torch.eye(n, dtype=A.dtype, device=dev).expand(B, n, n)
@@ -82,8 +94,27 @@ def gj_inverse_plain(A: torch.Tensor) -> torch.Tensor:
 def gj_inverse(A: torch.Tensor) -> torch.Tensor:
     """(B, n, n) f32 -> (B, n, n) f32 inverses, n <= 128."""
     _check(A)
+    return _with_rule(A, _gj_inverse)
+
+
+class _InverseRule(torch.autograd.Function):
+    """Rule 1: the primal from ``inv``, the tangent -M dA M."""
+
+    @staticmethod
+    def forward(ctx, A, inv):
+        M = inv(A)
+        ctx.save_for_forward(M)
+        return M
+
+    @staticmethod
+    def jvp(ctx, dA, _):
+        M, = ctx.saved_tensors
+        return inverse_tangent(M, dA)
+
+
+def _gj_inverse(A: torch.Tensor) -> torch.Tensor:
     if A.device.type == "cpu":
-        return gj_inverse_plain(A)
+        return _gj_plain(A)
     if A.device.type != "cuda":
         raise ValueError(f"gj_inverse: unsupported device {A.device}")
     global launches
@@ -147,13 +178,17 @@ def schur_inverse(A: torch.Tensor) -> torch.Tensor:
     128 it is :func:`gj_inverse` itself.
     """
     _check_schur(A)
-    return _schur(A, gj_inverse)
+    return _with_rule(A, lambda a: _schur(a, gj_inverse))
 
 
 def schur_inverse_plain(A: torch.Tensor) -> torch.Tensor:
     """The same composition over :func:`gj_inverse_plain` (any device)."""
     _check_schur(A)
-    return _schur(A, gj_inverse_plain)
+    return _with_rule(A, lambda a: _schur(a, gj_inverse_plain))
+
+
+def _with_rule(A: torch.Tensor, inv) -> torch.Tensor:
+    return _InverseRule.apply(A, inv) if has_tangent(A) else inv(A)
 
 
 def _library() -> ctypes.CDLL:

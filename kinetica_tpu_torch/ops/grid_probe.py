@@ -17,7 +17,8 @@ wrapper :func:`~kinetica_tpu_torch.ops.newton_solve.fused_newton_solve`
 call it on a CUDA device. A passed probe is cached for the process.
 
 On a CUDA tensor :func:`grid_probe` launches the kernel or raises; on a
-CPU tensor it runs :func:`grid_probe_plain`.
+CPU tensor it runs :func:`grid_probe_plain`. It has no forward-mode rule:
+a dual input raises ``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import ctypes
 import torch
 
 from .cuda_build import check_launch, load_library
+from .jvp import refuse_tangent
 
 ROWS, COLS, BLOCKS = 8, 128, 2
 TOL = 1e-6
@@ -48,6 +50,7 @@ def grid_probe(x: torch.Tensor, blocks: int = BLOCKS) -> torch.Tensor:
     """A grid of ``blocks`` blocks, each adding f32 ``x`` into one output."""
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("grid_probe: x must be contiguous float32")
+    refuse_tangent("grid_probe", x)
     if x.device.type == "cpu":
         return grid_probe_plain(x, blocks)
     if x.device.type != "cuda":

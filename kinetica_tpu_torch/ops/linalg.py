@@ -22,6 +22,14 @@ Lane gating: the reference compacts the factor rebuild to the lanes whose
 ``need`` flag is set with a ``custom_vmap`` rule. Here the needing lanes
 are picked with one device-to-host read, factored as a sub-batch, and
 copied back with ``index_copy``; the other lanes keep their old factor.
+
+Forward mode: the factor carries the reference's rule 2
+(``_inv_factor_jvp``), d(A^-1) = -M dA M with M the refined factor, so a
+tangent sees neither the Gauss-Jordan kernel nor the gated Newton-Schulz
+sweeps; ``need`` has no tangent. In a gated rebuild the kept lanes keep
+their old tangents (zero without ``prev``), the rebuilt lanes take new
+ones. The Newton solves are plain tensor arithmetic on M and J, and
+"inv_fused" carries rule 3 (:mod:`.newton_solve`).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 
 from . import host_sync
 from .gj_inverse import MAX_SCHUR_N, schur_inverse
+from .jvp import has_tangent, inverse_tangent
 from .newton_solve import fused_newton_solve
 
 NS_TOL = 3e-4          # Newton-Schulz factor tolerance (max |I - A M|)
@@ -151,11 +160,34 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
     return minv, rn
 
 
-def _inv_factor(A: torch.Tensor) -> torch.Tensor:
+def _inv_factor(A: torch.Tensor, inverse=schur_inverse) -> torch.Tensor:
     """Equilibrate -> Gauss-Jordan kernel (block-Schur above 128 species)
-    -> Newton-Schulz -> fold scales."""
+    -> Newton-Schulz -> fold scales; rule 2 on a dual ``A``. ``inverse``
+    is the f32 inverse of the equilibrated matrix (the kernel's;
+    ``schur_inverse_plain`` for comparisons)."""
+    if has_tangent(A):
+        return _FactorRule.apply(A, inverse)
+    return _inv_factor_primal(A, inverse)
+
+
+class _FactorRule(torch.autograd.Function):
+    """Rule 2: the refined f32 factor, the tangent -M dA M."""
+
+    @staticmethod
+    def forward(ctx, A, inverse):
+        M = _inv_factor_primal(A, inverse)
+        ctx.save_for_forward(M)
+        return M
+
+    @staticmethod
+    def jvp(ctx, dA, _):
+        M, = ctx.saved_tensors
+        return inverse_tangent(M, dA)
+
+
+def _inv_factor_primal(A: torch.Tensor, inverse) -> torch.Tensor:
     As, dr, dc = _equilibrate(A)
-    minv = schur_inverse(As.contiguous())
+    minv = inverse(As.contiguous())
     minv, _ = newton_schulz_refine(minv, As)
     return dc[:, :, None] * minv * dr[:, None, :]
 

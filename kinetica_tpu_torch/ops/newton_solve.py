@@ -21,7 +21,14 @@ It spreads a lane over a thread-block cluster of ``cs`` blocks, each
 holding a run of the lane's rows of M and J in shared memory; the
 cluster size comes from :func:`_cluster_plan`, and its result does not
 depend on it (bit for bit). A plan the card cannot schedule raises.
-The JVP rule of the reference (``_fused_solve_jvp``) is not ported.
+
+Forward mode carries the reference's rule 3 (``_fused_solve_jvp``): the
+solve acts as b -> A^-1 b with A = I - c J, so
+d(dy) = A^-1 (db + dc (J dy) + c (dJ dy)), computed by one more solve of
+the same kind (one more kernel launch on the card) on that right-hand
+side; the two matvecs are plain products and the preconditioner's
+tangent dM is dropped, as in the reference.
+
 On a CUDA tensor :func:`fused_newton_solve` launches the kernel or
 raises; on a CPU tensor it runs :func:`fused_newton_solve_plain`.
 """
@@ -33,6 +40,7 @@ import torch
 
 from .cuda_build import check_launch, load_library
 from .grid_probe import ensure_grid_supported
+from .jvp import has_tangent
 
 MAX_N = 512
 STOP_RTOL = 1e-4
@@ -58,8 +66,12 @@ def fused_newton_solve_plain(M: torch.Tensor, J: torch.Tensor, b: torch.Tensor,
     """The kernel's algorithm as a batched loop with per-lane masks.
 
     Every sweep is computed for all lanes and merged into the active
-    ones, so the loop needs no device-to-host read.
+    ones, so the loop needs no device-to-host read. Rule 3 on dual inputs.
     """
+    return _with_rule(_solve_plain, M, J, b, c, n_sweeps)
+
+
+def _solve_plain(M, J, b, c, n_sweeps):
     f32 = torch.float32
     dy = _matvec(M, b.to(f32)).to(b.dtype)
     active = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
@@ -199,8 +211,39 @@ def fused_newton_solve(M: torch.Tensor, J: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor, n_sweeps: int = 4) -> torch.Tensor:
     """(B, n, n) f32 M and J, (B, n) f64 b, (B,) f64 c -> (B, n) f64 dy."""
     _check(M, J, b, c, n_sweeps)
+    return _with_rule(_solve, M, J, b, c, n_sweeps)
+
+
+def _with_rule(solve, M, J, b, c, n_sweeps):
+    if has_tangent(M, J, b, c):
+        return _SolveRule.apply(M, J, b, c, n_sweeps, solve)
+    return solve(M, J, b, c, n_sweeps)
+
+
+class _SolveRule(torch.autograd.Function):
+    """Rule 3: the tangent is ``solve`` on db + dc (J dy) + c (dJ dy)."""
+
+    @staticmethod
+    def forward(ctx, M, J, b, c, n_sweeps, solve):
+        dy = solve(M, J, b, c, n_sweeps)
+        ctx.save_for_forward(M, J, c, dy)
+        ctx.n_sweeps, ctx.solve = n_sweeps, solve
+        return dy
+
+    @staticmethod
+    def jvp(ctx, dM, dJ, db, dc, *_):
+        M, J, c, dy = ctx.saved_tensors
+        rhs_t = torch.zeros_like(dy) if db is None else db
+        if dc is not None:
+            rhs_t = rhs_t + dc[:, None] * _matvec(J, dy.to(J.dtype)).to(dy.dtype)
+        if dJ is not None:
+            rhs_t = rhs_t + c[:, None] * _matvec(dJ, dy.to(dJ.dtype)).to(dy.dtype)
+        return ctx.solve(M, J, rhs_t.contiguous(), c, ctx.n_sweeps)
+
+
+def _solve(M, J, b, c, n_sweeps):
     if b.device.type == "cpu":
-        return fused_newton_solve_plain(M, J, b, c, n_sweeps)
+        return _solve_plain(M, J, b, c, n_sweeps)
     if b.device.type != "cuda":
         raise ValueError(f"newton_solve: unsupported device {b.device}")
     ensure_grid_supported(b.device)

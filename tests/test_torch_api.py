@@ -58,8 +58,7 @@ def test_port_table_is_the_jax_table_less_not_ported():
     assert not missing, missing
 
 
-@pytest.mark.parametrize("name", ["solve_network_sensitivities",
-                                  "no_such_name"])
+@pytest.mark.parametrize("name", ["explore_network", "no_such_name"])
 def test_unknown_names_raise(name):
     import kinetica_tpu_torch
     with pytest.raises(AttributeError, match=name):

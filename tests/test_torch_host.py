@@ -152,9 +152,22 @@ def test_port_never_imports_jax():
             "import kinetica_tpu_torch.ops.rk45, "
             "kinetica_tpu_torch.solving.steady_state, "
             "kinetica_tpu_torch.solving.adjoint\n"
+            "import kinetica_tpu_torch.ops.jvp, "
+            "kinetica_tpu_torch.solving.sensitivity\n"
+            "import kinetica_tpu_torch.analysis.flux, "
+            "kinetica_tpu_torch.analysis.screening, "
+            "kinetica_tpu_torch.analysis.sobol, "
+            "kinetica_tpu_torch.analysis.reduction, "
+            "kinetica_tpu_torch.analysis.graph, "
+            "kinetica_tpu_torch.analysis.bson_compat, "
+            "kinetica_tpu_torch.analysis.plotting\n"
             "kinetica_tpu_torch.solve_network, "
             "kinetica_tpu_torch.find_steady_state_ensemble, "
-            "kinetica_tpu_torch.solve_adjoint_gradient\n"
+            "kinetica_tpu_torch.solve_adjoint_gradient, "
+            "kinetica_tpu_torch.solve_network_sensitivities, "
+            "kinetica_tpu_torch.morris_screening, "
+            "kinetica_tpu_torch.reduce_network_drgep, "
+            "kinetica_tpu_torch.save_output\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'kinetica_tpu' or m.startswith('kinetica_tpu.')]\n"
             "assert not bad, bad\n"
