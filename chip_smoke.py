@@ -58,6 +58,23 @@ Forward sensitivities and the analysis layer, on the nc=24 network:
 * phase 16: DRG and DRGEP reductions, reaction fluxes and the
   save/load round trip on phase 6's ramp cut to 2 s.
 
+The chemistry layer, the calculators and exploration:
+
+* phase 17: BASELINE config 5, the kinetics-gated iterative exploration
+  of ``scripts/bench_explore.py 64`` (4 levels from CC over the native
+  ``cde_lite`` sampler, each gated by the 64-ramp discrete ensemble):
+  the species/reactions of each level against the JAX package's record,
+  members 0 and 63 of every gate against scipy-BDF (in a process pool,
+  beside phase 18), the seeds against those
+  references, the fused RHS and Gauss-Jordan kernels against their plain
+  versions at each gate's shapes, the checkpoint loading back, the native
+  chem library and ``cde_lite`` built under ``kinetica_tpu_torch/_build``;
+* phase 18: the KPM calculators on phase 17's final network, card
+  against CPU, and a 64-ramp continuous sweep with the collision
+  calculator against scipy-BDF; the fake-ASE ``ASENEBCalculator`` on
+  CC <-> C=C + H2 and a ``TSTCalculator`` at the nc=24 width, card
+  against CPU.
+
 Each path is held against a pure-numpy scipy-BDF reference (or the
 reference named above), and every kernel of a path must have launched
 during that path's run (the counts are set to 0, and the once-per-process
@@ -79,7 +96,7 @@ or over 20 calls back to back where a graph cannot capture it), beside
 ``bound_ms`` (the bytes or the operations of the work at the H100's
 peak rates); the Newton solve also at B = 1, the single solve's shape.
 The ``kernels`` line also gives each kernel's launches per step on each
-path (phases 5-16), its forward-mode rule with phase 4g's check, the
+path (phases 5-18), its forward-mode rule with phase 4g's check, the
 Newton solve's tangent launches in phase 4g and its device ms per step
 on phases 6, 7 and 9.
 
@@ -89,11 +106,13 @@ no GPU, when the package is not next to this script, or when any phase
 fails. The last line of standard output is the JSON result.
 """
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -947,6 +966,341 @@ def phase_analysis(dev, counts, record, tmp):
         f"({sum(launches.values()) / steps:.2f}/step)")
 
 
+def mole_err(u, ref):
+    """Max mole-fraction difference over (..., ns) states."""
+    return float(np.max(np.abs(u - ref)
+                        / np.maximum(ref.sum(axis=-1, keepdims=True), 1.0)))
+
+
+def _discrete_reference(job):
+    """One gate member's scipy-BDF trajectory (a worker process's job)."""
+    from kinetica_tpu_torch.testing.cpu_reference import (
+        scipy_bdf_discrete_trajectory)
+    return scipy_bdf_discrete_trajectory(*job)
+
+
+def check_gate_kernels(dev, gate_log):
+    """Phase 17's two kernels against their plain versions at each gate's
+    shapes (B=64, 4-15 species, 4-44 reactions): the fused RHS on the
+    gate's own network, Gauss-Jordan on well-conditioned (64, n, n)
+    matrices; made after the launch counts were read."""
+    import torch
+    from kinetica_tpu_torch.models.mass_action import augment, build_mass_action
+    from kinetica_tpu_torch.ops import gj_inverse
+    from kinetica_tpu_torch.ops.fused_rhs import FusedMassActionRHS
+    from kinetica_tpu_torch.testing.kernel_cases import rhs_rel_err
+
+    rng = np.random.default_rng(17)
+    out = []
+    for entry in gate_log:
+        sd, rd = entry["sd"], entry["rd"]
+        n = sd.n
+        net = build_mass_action(rd, n, device=dev)
+        fused = FusedMassActionRHS(net.N, net.reac_slots, dev)
+        u = 10.0 ** rng.uniform(-14, 0, (BATCH, n))
+        u_aug = augment(torch.as_tensor(u, device=dev), net.delta).contiguous()
+        k = torch.as_tensor(10.0 ** rng.uniform(-3, 12, (BATCH, rd.nr)),
+                            device=dev)
+        rel = rhs_rel_err(fused, u_aug, k, fused(u_aug, k))
+        A = torch.as_tensor(np.eye(n) + rng.standard_normal((BATCH, n, n))
+                            / (2.0 * np.sqrt(n)), device=dev).float()
+        M_k = gj_inverse.gj_inverse(A)
+        M_p = gj_inverse.gj_inverse_plain(A)
+        gj = float(((M_k.double() - M_p.double()).norm(dim=(1, 2))
+                    / M_p.double().norm(dim=(1, 2))).max())
+        if not (rel <= 1e-12 and gj <= 1e-5):
+            fail(f"phase 17 kernels at level {entry['level']} (ns {n}, nr "
+                 f"{rd.nr}): fused_rhs max |d| / sum|N r| {rel:.3e} (<= "
+                 f"1e-12), gj_inverse max rel Frobenius {gj:.3e} (<= 1e-5)")
+        out.append(f"ns {n} nr {rd.nr}: fused_rhs {rel:.2e}, gj_inverse "
+                   f"{gj:.2e}")
+    return "; ".join(out)
+
+
+def phase_explore(dev, counts, record, tmp, pool):
+    """Phase 17: BASELINE config 5 (``scripts/bench_explore.py 64``) on the
+    card: 4 levels from CC over cde_lite, each gated by the 64-ramp
+    discrete ensemble; sizes against the JAX package's record, members 0
+    and 63 of every gate against scipy-BDF, the seeds against those
+    references. The references run in ``pool``; returns the final network
+    and the function that waits for them and checks the gates."""
+    import random
+
+    import torch
+    from kinetica_tpu_torch.analysis.io import load_output
+    from kinetica_tpu_torch.chem import native
+    from kinetica_tpu_torch.exploration import explore_network
+    from kinetica_tpu_torch.exploration.cde_lite import build_cde_lite
+    from kinetica_tpu_torch.ops.cuda_build import BUILD_DIR
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.testing.explore_config import RECORD, config5
+
+    random.seed(0)
+    em, sm, conds = config5(tmp, batch=BATCH, device=dev)
+    pars, calc = sm.pars, sm.calculator
+    lanes = (0, BATCH - 1)
+    counts.reset()
+    t0 = time.perf_counter()
+    res = explore_network(em, sm, savedir=os.path.join(tmp, "out"), device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches, syncs = counts.read()
+    sizes = [(t["n_species"], t["n_reactions"]) for t in em.timings]
+    if sizes != list(RECORD):
+        fail(f"phase 17: species/reactions by level {sizes}, the JAX "
+             f"package's record {list(RECORD)}")
+    require_launched(17, launches, ("fused_rhs", "gj_inverse"))
+    exe = build_cde_lite()
+    for what, path in (("chem-lite library", native.lib_path),
+                       ("cde_lite", exe)):
+        if path is None or os.path.dirname(str(path)) != str(BUILD_DIR):
+            fail(f"phase 17: the {what} was not built under {BUILD_DIR}: {path}")
+    back = load_output(os.path.join(tmp, "out", "level_network_1-4.npz"))
+    if not (back.sd.toInt == res.sd.toInt and back.rd.nr == res.rd.nr
+            and np.array_equal(back.sol.u, em.gate_log[-1]["sol"].u[0])):
+        fail("phase 17: level_network_1-4.npz does not load back as member 0")
+    lines = []
+    for entry, t in zip(em.gate_log, em.timings):
+        sol = entry["sol"]
+        if not sol.success or not np.all(np.isfinite(sol.u)):
+            fail(f"phase 17 level {entry['level']}: {sol.retcodes}")
+        steps = t["n_steps_max"]
+        lines.append(
+            f"L{entry['level']} {entry['sd'].n} sp/{entry['rd'].nr} rxn: "
+            f"explore_s {t['explore_s']}, solve_s {t['solve_s']}, seeds_s "
+            f"{t['seeds_s']}, steps max {steps}, "
+            f"{t['solve_s'] * 1e3 / steps:.3f} ms/step, host syncs "
+            f"{t['host_syncs'] / steps:.2f}/step")
+    # once member 63 (1400 K) nears its equilibrium scipy-BDF's step
+    # stalls near 1e-5 s (~2.5e4 steps a 1 s chunk, against ~70 of the
+    # port's BDF), so the references run side by side, beside phase 18
+    futures = [pool.submit(_discrete_reference, (
+        e["sd"], e["rd"], calc, conds[b].get_profile("T"), e["sol"].t,
+        make_u0(e["sd"], pars), pars.reltol, pars.abstol,
+        conds[b].get_tstops())) for e in em.gate_log for b in lanes]
+    steps_all = sum(t["n_steps_max"] for t in em.timings)
+    record("17", launches, steps_all)
+    kernel_line = check_gate_kernels(dev, em.gate_log)
+    say(f"phase 17 config 5 exploration (B={BATCH}, {len(em.timings)} levels, "
+        f"discrete 40-80 K/s ramps from 600 K): species/reactions by level "
+        f"{sizes} = the JAX record; {total_s:.2f} s end to end; native "
+        f"chem-lite and cde_lite built under _build/; level_network_1-4.npz "
+        f"loads back; launches {launches} "
+        f"({sum(launches.values()) / steps_all:.2f}/step over {steps_all} "
+        f"steps); host syncs {syncs}; " + " | ".join(lines)
+        + f" | kernels vs plain at the gates' shapes (B={BATCH}): "
+        + kernel_line)
+
+    def check_references():
+        t1 = time.perf_counter()
+        refs_all = [f.result() for f in futures]
+        wait_s = time.perf_counter() - t1
+        lines = []
+        for i, entry in enumerate(em.gate_log):
+            sol, sd = entry["sol"], entry["sd"]
+            refs = np.stack(refs_all[i * len(lanes):(i + 1) * len(lanes)])
+            err = mole_err(sol.u[list(lanes)], refs)
+            ref_max = refs.reshape(-1, sd.n).max(axis=0)
+            ref_seeds = [sd.toStr[j] for j in range(sd.n)
+                         if ref_max[j] >= em.seed_conc]
+            card_max = sol.u.reshape(-1, sd.n).max(axis=0)
+            if err > 1e-6 or ref_seeds != entry["next_seeds"]:
+                fail(f"phase 17 level {entry['level']}: members {lanes} vs "
+                     f"scipy-BDF {err:.3e} (> 1e-6?); seeds card "
+                     f"{entry['next_seeds']}, scipy-BDF {ref_seeds}; margins "
+                     + ", ".join(f"{sd.toStr[j]} {card_max[j]:.6f}"
+                                 for j in range(sd.n)))
+            lines.append(
+                f"L{entry['level']}: {err:.3e}, {len(ref_seeds)} seeds equal "
+                f"(least margin to {em.seed_conc}: "
+                f"{np.abs(card_max - em.seed_conc).min():.4f})")
+        say(f"phase 17 references: members 0/{BATCH - 1} of every gate vs "
+            f"scipy-BDF (<= 1e-6) and the seeds recomputed from them "
+            f"({len(futures)} references in a process pool beside phase 18, "
+            f"waited {wait_s:.2f} s after it): " + " | ".join(lines))
+
+    return res, check_references
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+
+def phase_calculators(dev, counts, record, tmp, sd17, rd17):
+    """Phase 18: (a) the KPM calculators on phase 17's final network, card
+    against CPU, and a 64-ramp continuous sweep with the collision
+    calculator against scipy-BDF; (b) the fake-ASE ASENEBCalculator on
+    CC <-> C=C + H2 and a TSTCalculator at the nc=24 width, card against
+    CPU."""
+    import torch
+    from kinetica_tpu_torch import constants
+    from kinetica_tpu_torch.ase.thermo_check import numpy_enthalpy, numpy_entropy
+    from kinetica_tpu_torch.calculators import kpm, tst
+    from kinetica_tpu_torch.chem import frame_from_smiles
+    from kinetica_tpu_torch.core.network import RxData, SpeciesData
+    from kinetica_tpu_torch.parallel.batching import EnsembleProblem
+    from kinetica_tpu_torch.solving.methods import VariableODESolve
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.testing import device_timing, fake_ase
+    from kinetica_tpu_torch.testing.cpu_reference import (
+        collision_k_of_t, scipy_bdf_trajectory)
+    from kinetica_tpu_torch.testing.explore_config import config5
+    from kinetica_tpu_torch.testing.synthetic import (
+        seeded_kpm_params, synthetic_pyrolysis_network,
+        synthetic_thermo_tables, write_kpm_npz)
+    from kinetica_tpu_torch.testing.tst_bounds import (entropy_abs_bound,
+                                                       rate_rel_bound)
+
+    t_start = time.perf_counter()
+    cpu = torch.device("cpu")
+    T64 = np.linspace(600.0, 1400.0, BATCH)
+    model = os.path.join(tmp, "kpm_model.npz")
+    write_kpm_npz(model, seeded_kpm_params(seed=3))
+    # (a) the four KPM set-ups, card against CPU
+    errs = {}
+    setups = (("basic", kpm.KPMBasicCalculator, {}),
+              ("collision", kpm.KPMCollisionCalculator, {}),
+              ("collision_inert", kpm.KPMCollisionCalculator,
+               {"inert_species": ["[Ar]"]}),
+              ("collision_entropy", kpm.KPMCollisionEntropyCalculator, {}))
+    for name, cls, kw in setups:
+        out = []
+        for d in (dev, cpu):
+            sd, rd = sd17.copy(), rd17.copy()
+            calc = cls(kpm.KPMRun(model, device=d), uncertainty=True,
+                       k_max=1e12, device=d, **kw)
+            calc.setup_network(sd, rd)
+            out.append((calc, [calc(T=900.0),
+                               calc(T=torch.as_tensor(T64, device=d))]))
+        (c_d, k_d), (c_c, k_c) = out
+        ev = c_d.Ea.cpu().numpy() / constants.eV_to_J_per_mol
+        if not (c_d.Ea.device == dev and np.all((ev > 0.8) & (ev < 2.0))):
+            fail(f"phase 18 {name}: Ea on {c_d.Ea.device}, range "
+                 f"{ev.min():.3f}-{ev.max():.3f} eV (0.8-2.0)")
+        e = max(_rel(c_d.Ea.cpu(), c_c.Ea), _rel(c_d.Ea_std.cpu(), c_c.Ea_std),
+                *(_rel(a.cpu(), b) for a, b in zip(k_d, k_c)))
+        if e > 1e-12 or k_d[1].shape != (BATCH, rd.nr):
+            fail(f"phase 18 {name}: card vs CPU max relative {e:.3e} (> 1e-12)"
+                 f" or shape {tuple(k_d[1].shape)}")
+        errs[name] = e
+        if name == "collision":
+            coll_cpu = c_c
+    # the 64-ramp continuous sweep with the collision calculator
+    _, sm, conds = config5(os.path.join(tmp, "kpm_sweep"), batch=BATCH,
+                           device=dev)
+    pars = sm.pars
+    calc = kpm.KPMCollisionCalculator(kpm.KPMRun(model, device=dev),
+                                      k_max=1e12, device=dev)
+    method = VariableODESolve(pars, conds[0], calc)
+    counts.reset()
+    prob = EnsembleProblem(method, sd17, rd17, rate_mode="continuous",
+                           device=dev)
+    ens, sweep_s = timed_run(lambda: prob.solve(conditions_list=conds))
+    launches, syncs = counts.read()
+    require_launched("18", launches, ("fused_rhs", "gj_inverse"))
+    steps = int(np.max(ens.stats["n_steps"]))
+    record("18", launches, steps)
+    t1 = time.perf_counter()
+    u0 = make_u0(prob.sd, pars)
+    refs = np.stack([scipy_bdf_trajectory(
+        prob.sd, prob.rd, collision_k_of_t(
+            coll_cpu.Ea.numpy(), coll_cpu.mu.numpy(), coll_cpu.sigma.numpy(),
+            coll_cpu.rho.numpy(), 1e12, 1.0, conds[b].get_profile("T")),
+        ens.t, u0, REF_RTOL, REF_ATOL) for b in (0, BATCH - 1)])
+    ref_s = time.perf_counter() - t1
+    sweep_err = mole_err(ens.u[[0, BATCH - 1]], refs)
+    if not ens.success or sweep_err > 1e-6:
+        fail(f"phase 18 KPM sweep: {ens.retcodes}; members 0/{BATCH - 1} vs "
+             f"scipy-BDF {sweep_err:.3e} (> 1e-6)")
+    # (b) the fake-ASE pipeline: the NEB and vibrations on the host, the
+    # TST rates on the card
+    smis = ["CC", "C=C", "[H][H]"]
+    sd = SpeciesData(smis, [frame_from_smiles(s) for s in smis])
+    rd = RxData()
+    rd.push(sd, [["CC"]], [["C=C", "[H][H]"]])
+    rd.push(sd, [["C=C", "[H][H]"]], [["CC"]])
+    fake_ase.install()
+    try:
+        from kinetica_tpu_torch.ase.calculator import ASENEBCalculator
+        neb = ASENEBCalculator(
+            calc_builder=fake_ase.ToyMorseBuilder(),
+            calcdir=os.path.join(tmp, "aseneb"), n_images=5,
+            neb_optimiser="fire", climb=False, ftol=0.3, geom_fmax=0.05,
+            maxiters=400, interpolation="linear", remove_unconverged=False,
+            device=dev)
+        neb.setup_network(sd, rd)
+    finally:
+        fake_ase.uninstall()
+    T7 = np.linspace(800.0, 1400.0, 7)
+    k_card = neb(T=torch.as_tensor(T7, device=dev), P=1e5)
+    t_card = neb._tst
+    t_cpu = tst.TSTCalculator(t_card.species, t_card.ts, rd.id_reacs,
+                              rd.stoic_reacs, device=cpu)
+    k_cpu = t_cpu(T=torch.as_tensor(T7), P=1e5)
+    if not (k_card.device == dev and neb.ts_cache["conv"]
+            == {0: True, 1: True}):
+        fail(f"phase 18 ASE-NEB: rates on {k_card.device}, NEB converged "
+             f"{neb.ts_cache['conv']}")
+    rel = (np.abs(k_card.cpu().numpy() / k_cpu.numpy() - 1.0)
+           / (1e-12 + rate_rel_bound(t_card, T7)))
+    # the card's thermo of every species and TS against thermo_check's
+    # numpy formulas, beyond the same conditioning
+    th = 0.0
+    for tab in (t_card.species, t_card.ts):
+        dtab = tab.to(dev)
+        Tb = torch.full((1, 1), 1000.0, dtype=torch.float64, device=dev)
+        S = tst.entropy(dtab["mass"], dtab["inertias"], dtab["geometry"],
+                        dtab["symmetry"], dtab["mult"], dtab["vib_energies"],
+                        dtab["vib_mask"], Tb, 1e5)[0].cpu().numpy()
+        H = tst.enthalpy(dtab["energy"], dtab["vib_energies"],
+                         dtab["vib_mask"], dtab["geometry"], Tb)[0].cpu().numpy()
+        S_b = entropy_abs_bound(tab, [1000.0])[0]
+        for i in range(tab.mass.shape[0]):
+            vibs = tab.vib_energies[i][tab.vib_mask[i]]
+            S_np = numpy_entropy(tab.mass[i], tab.inertias[i],
+                                 int(tab.geometry[i]), tab.symmetry[i],
+                                 tab.mult[i], vibs, 1000.0, 1e5)
+            H_np = numpy_enthalpy(tab.energy[i], vibs, int(tab.geometry[i]),
+                                  1000.0)
+            th = max(th, abs(S[i] - S_np) / (1e-12 * abs(S_np) + S_b[i]),
+                     abs(H[i] - H_np) / (1e-12 * abs(H_np)))
+    if rel.max() > 1.0 or th > 1.0:
+        fail(f"phase 18 ASE-NEB: card vs CPU rates {rel.max():.3f} of their "
+             f"bound, thermo vs numpy {th:.3f} of its bound")
+    # a TSTCalculator of seeded tables at the nc=24 width
+    sd24, rd24, _, _ = synthetic_pyrolysis_network(N_CARBONS)
+    tabs = synthetic_thermo_tables(sd24, rd24, seed=5)
+    c24 = tst.TSTCalculator(*tabs, device=dev)
+    c24c = tst.TSTCalculator(*tabs, device=cpu)
+    k24 = c24(T=torch.as_tensor(T64, device=dev), P=1e5)
+    e24 = _rel(k24.cpu(), c24c(T=torch.as_tensor(T64), P=1e5))
+    ms24 = device_timing.event_ms(
+        lambda: c24(T=torch.as_tensor(T64, device=dev), P=1e5))
+    if k24.shape != (BATCH, rd24.nr) or e24 > 1e-12:
+        fail(f"phase 18 TST nc={N_CARBONS}: shape {tuple(k24.shape)}, card vs "
+             f"CPU {e24:.3e} (> 1e-12)")
+    say(f"phase 18 calculators: (a) KPM on phase 17's network ({rd17.nr} rxn "
+        f"/ {sd17.n} sp, 5-member 16-64-64-1 ensemble, Ea "
+        f"{ev.min():.3f}-{ev.max():.3f} eV): card vs CPU max relative (Ea, "
+        f"Ea_std, k at 900 K and at T ({BATCH},)) "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (<= 1e-12); continuous {BATCH}-ramp sweep with the collision "
+        f"calculator: {sweep_s:.3f} s, steps max {steps}, "
+        f"{sweep_s * 1e3 / steps:.3f} ms/step, host syncs "
+        f"{syncs / steps:.2f}/step, members 0/{BATCH - 1} vs scipy-BDF "
+        f"{sweep_err:.3e} (<= 1e-6; reference {ref_s:.2f} s), launches "
+        f"{launches} ({sum(launches.values()) / steps:.2f}/step) | (b) "
+        f"ASE-NEB over the fake ASE, CC <-> C=C + H2: card vs CPU rates at "
+        f"T (7,) within {rel.max():.3f} of 1e-12 + the log1p(-exp(-x)) "
+        f"conditioning of the pipeline's near-zero modes (max relative "
+        f"{_rel(k_card.cpu(), k_cpu):.2e}); thermo of every species and TS "
+        f"vs thermo_check's numpy formulas within {th:.3f} of that bound; "
+        f"TSTCalculator nc={N_CARBONS} ({sd24.n} species, {rd24.nr} TS) at T "
+        f"({BATCH},): card vs CPU {e24:.3e} (<= 1e-12), {ms24:.3f} ms a call "
+        f"| phase 18 {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1725,6 +2079,17 @@ def main() -> None:
         phase_analysis(dev, counts, record, tmp)
     new_phases_s += time.perf_counter() - t0
     say(f"phases 4g and 14-16: {new_phases_s:.1f} s on this card")
+
+    # ---- phases 17-18: config 5's exploration and the calculators ----
+    t0 = time.perf_counter()
+    with (tempfile.TemporaryDirectory() as tmp,
+          ProcessPoolExecutor(max(1, min(7, (os.cpu_count() or 2) - 1)),
+                              mp_context=multiprocessing.get_context("spawn"))
+          as pool):
+        res17, check17 = phase_explore(dev, counts, record, tmp, pool)
+        phase_calculators(dev, counts, record, tmp, res17.sd, res17.rd)
+        check17()
+    say(f"phases 17-18: {time.perf_counter() - t0:.1f} s on this card")
 
     for kname in KERNELS:
         kernels[kname]["launches"] = total[kname]

@@ -10,8 +10,11 @@ complete or chunkwise, BDF or RK45, f64 or f32 state), the batched
 ensemble (``EnsembleProblem``, ``solve_network_ensemble``), steady states
 single and batched with their sensitivities, the adjoint gradient, the
 forward sensitivities (tangents through the kernels' forward-mode
-rules) and the analysis layer (save/load, fluxes, Morris, Sobol,
-DRG/DRGEP, graph export, plots). It never imports jax.
+rules), the analysis layer (save/load, fluxes, Morris, Sobol,
+DRG/DRGEP, graph export, plots), the chemistry layer and the TST,
+ASE-NEB and KPM calculators, and CRN exploration (``explore_network``
+over the native ``cde_lite`` sampler, each level gated by a kinetic solve
+on the device). It never imports jax.
 
 Importing the package sets the float32 matmul precision policy (see
 :mod:`kinetica_tpu_torch.precision`): every f32 product the solver makes
@@ -41,11 +44,21 @@ _API = {
     "DummyKineticCalculator": "kinetica_tpu_torch.calculators.builtin",
     "PrecalculatedArrheniusCalculator": "kinetica_tpu_torch.calculators.builtin",
     "PrecalculatedLindemannCalculator": "kinetica_tpu_torch.calculators.builtin",
+    "TSTCalculator": "kinetica_tpu_torch.calculators.tst",
+    "ASENEBCalculator": "kinetica_tpu_torch.ase.calculator",
     "ODESimulationParams": "kinetica_tpu_torch.solving.params",
     "RxFilter": "kinetica_tpu_torch.solving.filters",
     "StaticODESolve": "kinetica_tpu_torch.solving.methods",
     "VariableODESolve": "kinetica_tpu_torch.solving.methods",
     "solve_network": "kinetica_tpu_torch.solving.methods",
+    "CDE": "kinetica_tpu_torch.exploration",
+    "DirectExplore": "kinetica_tpu_torch.exploration",
+    "IterativeExplore": "kinetica_tpu_torch.exploration",
+    "explore_network": "kinetica_tpu_torch.exploration",
+    "KPMRun": "kinetica_tpu_torch.calculators.kpm",
+    "KPMBasicCalculator": "kinetica_tpu_torch.calculators.kpm",
+    "KPMCollisionCalculator": "kinetica_tpu_torch.calculators.kpm",
+    "KPMCollisionEntropyCalculator": "kinetica_tpu_torch.calculators.kpm",
     "ODESolveOutput": "kinetica_tpu_torch.analysis.io",
     "save_output": "kinetica_tpu_torch.analysis.io",
     "load_output": "kinetica_tpu_torch.analysis.io",
@@ -78,12 +91,8 @@ _API = {
 }
 
 # Names of kinetica_tpu's table whose modules are not ported yet; they
-# raise AttributeError here (ROADMAP.md, Queue 1)
-NOT_PORTED = (
-    "TSTCalculator", "ASENEBCalculator", "CDE", "DirectExplore",
-    "IterativeExplore", "explore_network", "KPMRun", "KPMBasicCalculator",
-    "KPMCollisionCalculator", "KPMCollisionEntropyCalculator",
-)
+# raise AttributeError here (ROADMAP.md, Queue 1). Every name is ported.
+NOT_PORTED = ()
 
 
 def __getattr__(name):

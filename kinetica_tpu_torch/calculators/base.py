@@ -34,3 +34,10 @@ class KineticCalculator:
         if k_max is None:
             return k
         return 1.0 / (1.0 / k_max + 1.0 / k)
+
+
+def splice_network_and_calc(rd, calc: KineticCalculator, rids) -> None:
+    """Remove reactions from both network and calculator
+    (reference calculator.jl:60-66)."""
+    rd.splice(rids)
+    calc.splice(rids)

@@ -65,11 +65,10 @@ class SpeciesData:
     @classmethod
     def from_xyz_file(cls, xyz_file: str, level: int = 1, unique_species: bool = True,
                       fix_radicals: bool = True) -> "SpeciesData":
-        """Build from a (possibly multi-molecule) XYZ file (network.jl:74-79).
-
-        The chemistry layer (``kinetica_tpu.chem``) is not ported yet."""
-        raise NotImplementedError("XYZ ingestion needs the chemistry layer, "
-                                  "which kinetica_tpu_torch does not port yet")
+        """Build from a (possibly multi-molecule) XYZ file (network.jl:74-79)."""
+        from ..chem import ingest_xyz_system
+        smi_list, xyz_list = ingest_xyz_system(xyz_file, fix_radicals=fix_radicals)
+        return cls(smi_list, xyz_list, level, unique_species=unique_species)
 
     def push(self, smi: str, xyz: Frame | None = None, level: int = 1) -> int:
         """Unconditionally add a species; returns its new ID."""
@@ -89,8 +88,13 @@ class SpeciesData:
 
     def push_xyz_file(self, xyz_file: str, level: int = 1, unique: bool = True,
                       fix_radicals: bool = True) -> None:
-        raise NotImplementedError("XYZ ingestion needs the chemistry layer, "
-                                  "which kinetica_tpu_torch does not port yet")
+        from ..chem import ingest_xyz_system
+        smi_list, xyz_list = ingest_xyz_system(xyz_file, fix_radicals=fix_radicals)
+        for smi, xyz in zip(smi_list, xyz_list):
+            if unique:
+                self.push_unique(smi, xyz, level)
+            else:
+                self.push(smi, xyz, level)
 
     def __contains__(self, smi: str) -> bool:
         return smi in self.toInt
@@ -174,7 +178,7 @@ class RxData:
             mapped_rxn = ""
             if rsys[i] is not None and psys[i] is not None:
                 try:
-                    from ..chem import atom_map_smiles  # not ported yet
+                    from ..chem import atom_map_smiles
                     mapped_reacs = atom_map_smiles(rsys[i], ".".join(all_reacs))
                     mapped_prods = atom_map_smiles(psys[i], ".".join(all_prods))
                     mapped_rxn = f"{mapped_reacs}>>{mapped_prods}"

@@ -1,10 +1,11 @@
 """Solve-core utilities (counterpart of ``kinetica_tpu/solving/solve_utils.py``).
 
 Ported: :func:`get_max_rates`, :func:`get_initial_rates`,
-:func:`calculate_discrete_rates`, :func:`apply_low_k_cutoff`,
-:func:`make_u0` and :func:`resolve_chunks_per_dispatch`. Calculators
-return tensors on their device; these functions hand back host numpy
-arrays, as the reference does. Not ported: ``insert_inert``.
+:func:`calculate_discrete_rates`, :func:`insert_inert`,
+:func:`apply_low_k_cutoff`, :func:`make_u0` and
+:func:`resolve_chunks_per_dispatch`. Calculators return tensors on their
+device; these functions hand back host numpy arrays, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from ..calculators.base import KineticCalculator
 from ..conditions.condition_set import ConditionSet
-from ..core.network import RxData, SpeciesData
+from ..core.network import RxData, SpeciesData, stable_species_hash
 from ..utils.logging import logger
 
 
@@ -90,6 +91,56 @@ def calculate_discrete_rates(conditions: ConditionSet,
                                 for s, v in bound.items()}))
             for t in tstops])
     return np.asarray(tstops, dtype=np.float64), k_table
+
+
+def insert_inert(rd: RxData, sd: SpeciesData, inert_species: list[str]) -> None:
+    """Insert inert collision partners into all unimolecular reactions.
+
+    Converts unimolecular reactions to bimolecular with the inert species as
+    a bystander; with multiple inert species, creates one reaction channel
+    per partner (solve_utils.jl:126-192).
+    """
+    inert_ids = []
+    for species in inert_species:
+        if species not in sd.toInt:
+            xyz = None
+            try:
+                from ..chem import frame_from_smiles
+                xyz = frame_from_smiles(species)
+            except Exception:
+                logger.debug("No 3D geometry available for inert species %s", species)
+            inert_ids.append(sd.push(species, xyz))
+        else:
+            inert_ids.append(sd.toInt[species])
+
+    uni = [i for i in range(rd.nr)
+           if len(rd.id_reacs[i]) == 1 and rd.stoic_reacs[i][0] == 1]
+
+    for i, (species, sid) in enumerate(zip(inert_species, inert_ids)):
+        last = i == len(inert_species) - 1
+        for rid in uni:
+            if not last:
+                all_reacs = sorted(
+                    [sd.toStr[s] for j, s in enumerate(rd.id_reacs[rid])
+                     for _ in range(rd.stoic_reacs[rid][j])] + [species])
+                all_prods = sorted(
+                    [sd.toStr[s] for j, s in enumerate(rd.id_prods[rid])
+                     for _ in range(rd.stoic_prods[rid][j])] + [species])
+                rd.nr += 1
+                rd.mapped_rxns.append(rd.mapped_rxns[rid])
+                rd.id_reacs.append(rd.id_reacs[rid] + [sid])
+                rd.id_prods.append(rd.id_prods[rid] + [sid])
+                rd.stoic_reacs.append(rd.stoic_reacs[rid] + [1])
+                rd.stoic_prods.append(rd.stoic_prods[rid] + [1])
+                rd.dH.append(rd.dH[rid])
+                rd.rhash.append(stable_species_hash(all_reacs, all_prods))
+                rd.level_found.append(rd.level_found[rid])
+            else:
+                rd.id_reacs[rid] = rd.id_reacs[rid] + [sid]
+                rd.id_prods[rid] = rd.id_prods[rid] + [sid]
+                rd.stoic_reacs[rid] = rd.stoic_reacs[rid] + [1]
+                rd.stoic_prods[rid] = rd.stoic_prods[rid] + [1]
+                rd.rhash[rid] = rd.get_rhash(sd, rid)
 
 
 def apply_low_k_cutoff(rd: RxData, calc: KineticCalculator, pars,

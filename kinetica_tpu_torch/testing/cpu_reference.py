@@ -176,6 +176,60 @@ def scipy_bdf_discrete_baseline(sd, rd, calc, profile, tspan, u0, rtol, atol,
     return u
 
 
+def scipy_bdf_discrete_trajectory(sd, rd, calc, profile, ts, u0, rtol, atol,
+                                  tstops):
+    """:func:`scipy_bdf_discrete_baseline` read at the times ``ts`` (the
+    first at the start of the span): a (len(ts), ns) array. The solve also
+    restarts at every time of ``ts``, as a chunkwise solve restarts at
+    every chunk."""
+    ts = np.asarray(ts, float)
+    out = [np.asarray(u0, float)]
+    for a, b in zip(ts[:-1], ts[1:]):
+        out.append(scipy_bdf_discrete_baseline(
+            sd, rd, calc, profile, (a, b), out[-1], rtol, atol, tstops))
+    return np.stack(out)
+
+
+def collision_k_of_t(Ea, mu, sigma, rho, k_max, t_mult, profile):
+    """Pure-numpy ``k(t)`` of the KPM collision-theory rate law
+    (``sigma rho N_A sqrt(8 k_b T / pi mu) 1e3 e^{-Ea/RT}``, harmonic
+    ``k_max`` cap) under a linear-ramp temperature profile, from the
+    per-reaction host arrays of a ``KPMCollisionCalculator``."""
+    Ea, mu, sigma, rho = (np.asarray(x, float) for x in (Ea, mu, sigma, rho))
+    T0, rate, T_end = (float(profile.X_start), float(profile.rate),
+                       float(profile.X_end))
+    t_ramp_end = float(profile.t_end)
+
+    def k_of_t(t):
+        T = T0 + rate * t if t <= t_ramp_end else T_end
+        A = sigma * rho * constants.N_A * np.sqrt(
+            8.0 * constants.k_b * T / (np.pi * mu)) * 1e3
+        k = A * np.exp(-Ea / (constants.R * T)) * t_mult
+        if k_max is not None:
+            k = 1.0 / (1.0 / k_max + 1.0 / k)
+        return k
+
+    return k_of_t
+
+
+def scipy_bdf_trajectory(sd, rd, k_of_t, ts, u0, rtol, atol):
+    """Continuous-rate scipy BDF under ``k_of_t`` read at the times ``ts``
+    (the first at the start), restarting at each, as a chunkwise solve
+    restarts at every chunk: a (len(ts), ns) array."""
+    from scipy.integrate import solve_ivp
+
+    rhs_f, jac_f = build_numpy_mass_action(sd, rd)
+    rhs, jac = rhs_f(k_of_t), jac_f(k_of_t)
+    ts = np.asarray(ts, float)
+    out = [np.asarray(u0, float)]
+    for a, b in zip(ts[:-1], ts[1:]):
+        sol = solve_ivp(rhs, (a, b), out[-1], method="BDF", jac=jac,
+                        rtol=rtol, atol=atol)
+        assert sol.success, f"CPU baseline failed on [{a}, {b}]"
+        out.append(sol.y[:, -1])
+    return np.stack(out)
+
+
 def scipy_bdf_chunked_baseline(sd, rd, calc, profile, tspan, u0, rtol, atol,
                                n_chunks: int = 40, best_of: int = 3):
     """Chunkwise-local-time scipy BDF — the reference's long-timescale

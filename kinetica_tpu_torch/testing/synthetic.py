@@ -119,3 +119,80 @@ def synthetic_pyrolysis_network(n_carbons: int = 16, seed: int = 12345,
         Eas = [hmap[h][0] for h in rd.rhash]
         As = [hmap[h][1] for h in rd.rhash]
     return sd, rd, np.asarray(Eas, dtype=np.float64), np.asarray(As, dtype=np.float64)
+
+
+def synthetic_thermo_tables(sd, rd, seed: int = 0):
+    """Seeded TST inputs for a network: ``(species, ts, id_reacs,
+    stoic_reacs)``, the tables as numpy :class:`~kinetica_tpu_torch.
+    calculators.tst.ThermoTable` s.
+
+    Species take every geometry class and 0-30 vibrational modes (so the
+    padded, masked modes are exercised). A transition state carries its
+    reactants' summed mass and their modes less one (jittered by up to
+    10%; at most 30), so its entropy stays near theirs, and lies 0.6-1.6
+    eV above them once the zero-point energies are counted.
+    """
+    from ..calculators.tst import ThermoTable
+
+    rng = np.random.default_rng(seed)
+    n = sd.n
+    geometry = rng.integers(0, 3, n)
+    inertias = rng.uniform(0.5, 80.0, (n, 3))
+    inertias[geometry == 0] = 0.0
+    inertias[geometry == 1, 0] = 0.0
+    vibs = [rng.uniform(0.01, 0.45, 0 if g == 0 else rng.integers(1, 31))
+            for g in geometry]
+    mass = rng.uniform(2.0, 120.0, n)
+    energy = rng.uniform(-60.0, -5.0, n)
+    species = ThermoTable.from_lists(
+        mass, inertias, geometry, rng.integers(1, 13, n).astype(float),
+        rng.integers(1, 3, n).astype(float), energy, vibs)
+
+    ts_mass, ts_vibs, ts_energy = [], [], []
+    for ids, sts in zip(rd.id_reacs, rd.stoic_reacs):
+        parts = [sid for sid, st in zip(ids, sts) for _ in range(st)]
+        v = np.concatenate([vibs[sid] for sid in parts])[1:31]
+        v = v * rng.uniform(0.9, 1.1, v.size)
+        e_reac = sum(energy[sid] + 0.5 * vibs[sid].sum() for sid in parts)
+        ts_mass.append(sum(mass[sid] for sid in parts))
+        ts_vibs.append(v)
+        ts_energy.append(e_reac - 0.5 * v.sum() + rng.uniform(0.6, 1.6))
+    nr = rd.nr
+    ts_geom = np.full(nr, 2)
+    ts = ThermoTable.from_lists(
+        ts_mass, rng.uniform(5.0, 200.0, (nr, 3)), ts_geom,
+        np.ones(nr), rng.integers(1, 3, nr).astype(float), ts_energy, ts_vibs)
+    return species, ts, list(rd.id_reacs), list(rd.stoic_reacs)
+
+
+def seeded_kpm_params(seed: int = 0, members: int = 5, in_dim: int = 16,
+                      hidden=(64, 64), target_mean: float = 1.4,
+                      target_std: float = 0.15) -> dict:
+    """A seeded MLP ensemble (``in_dim`` -> ``hidden`` -> 1, tanh) in the
+    JAX package's ``KPMRun.params`` layout, as numpy arrays. Weights are
+    N(0, 1/fan_in); inputs are scaled by 1/4; with the default target
+    mean and std (eV) the activation energies lie within 1.4 +- 0.4 eV for
+    descriptors of small hydrocarbon networks."""
+    rng = np.random.default_rng(seed)
+    dims = (in_dim, *hidden, 1)
+    W, b = [], []
+    for _ in range(members):
+        W.append([rng.standard_normal((i, o)) / np.sqrt(i)
+                  for i, o in zip(dims[:-1], dims[1:])])
+        b.append([0.1 * rng.standard_normal(o) for o in dims[1:]])
+    return {"W": W, "b": b, "feat_mean": np.zeros(in_dim),
+            "feat_std": np.full(in_dim, 4.0),
+            "target_mean": np.asarray(target_mean),
+            "target_std": np.asarray(target_std)}
+
+
+def write_kpm_npz(path, params: dict) -> None:
+    """Write ``params`` (the layout of :func:`seeded_kpm_params`) as the
+    ``.npz`` model file both packages' ``KPMRun(model_path)`` read."""
+    arrs = {f"{kind}{m}_{l}": a
+            for kind in ("W", "b")
+            for m, member in enumerate(params[kind])
+            for l, a in enumerate(member)}
+    for key in ("feat_mean", "feat_std", "target_mean", "target_std"):
+        arrs[key] = params[key]
+    np.savez(path, **arrs)

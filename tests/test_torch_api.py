@@ -1,9 +1,8 @@
 """The port's package-level API and the solver parameters it decides on.
 
 ``kinetica_tpu_torch.<name>`` resolves lazily as ``kinetica_tpu.<name>``
-does; every name of the port's table is also a name of the JAX package's
-table, and every JAX name the port lacks is listed in ``NOT_PORTED``
-(mirrored in ROADMAP.md). The parameters the port once accepted and
+does; the port's table is the JAX package's table, and ``NOT_PORTED``
+(the JAX names the port lacks, mirrored in ROADMAP.md) is empty. The parameters the port once accepted and
 never read: ``jac_form="segsum"`` is honoured (a segment-sum Jacobian,
 equal to the JAX package's ``jac`` to 1e-12), ``progress`` and
 ``chunks_per_dispatch`` are honoured without changing results or adding
@@ -52,6 +51,18 @@ def test_port_table_is_the_jax_table_less_not_ported():
     for name in port:
         getattr(kinetica_tpu, name)
     assert jax_names - port == set(kinetica_tpu_torch.NOT_PORTED)
+    assert kinetica_tpu_torch.NOT_PORTED == () and port == jax_names
+    # each name sits in the port's counterpart of the JAX module
+    tree = ast.parse(open(os.path.join(ROOT, "kinetica_tpu",
+                                       "__init__.py")).read())
+    table = next(node.value for node in ast.walk(tree)
+                 if isinstance(node, ast.Assign)
+                 and isinstance(node.value, ast.Dict)
+                 and any(getattr(t, "id", None) == "_API"
+                         for t in node.targets))
+    for k, v in zip(table.keys, table.values):
+        assert kinetica_tpu_torch._API[k.value] == v.value.replace(
+            "kinetica_tpu.", "kinetica_tpu_torch.", 1), k.value
     roadmap = open(os.path.join(ROOT, "ROADMAP.md")).read()
     missing = [n for n in kinetica_tpu_torch.NOT_PORTED
                if f"`{n}`" not in roadmap]
@@ -60,7 +71,14 @@ def test_port_table_is_the_jax_table_less_not_ported():
 
 @pytest.mark.parametrize("name", ["explore_network", "no_such_name"])
 def test_unknown_names_raise(name):
+    """A name of the JAX package's table resolves in the port
+    (``explore_network``, the last one ported, raised until it was); any
+    other name raises."""
     import kinetica_tpu_torch
+    if name in _jax_table():
+        obj = getattr(kinetica_tpu_torch, name)
+        assert obj.__module__.startswith("kinetica_tpu_torch.exploration")
+        return
     with pytest.raises(AttributeError, match=name):
         getattr(kinetica_tpu_torch, name)
 

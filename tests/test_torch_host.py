@@ -161,13 +161,28 @@ def test_port_never_imports_jax():
             "kinetica_tpu_torch.analysis.graph, "
             "kinetica_tpu_torch.analysis.bson_compat, "
             "kinetica_tpu_torch.analysis.plotting\n"
+            "import kinetica_tpu_torch.chem, kinetica_tpu_torch.chem.native, "
+            "kinetica_tpu_torch.ase, kinetica_tpu_torch.ase.calculator, "
+            "kinetica_tpu_torch.ase.thermo_check, "
+            "kinetica_tpu_torch.exploration, "
+            "kinetica_tpu_torch.exploration.cde_lite, "
+            "kinetica_tpu_torch.calculators.tst, "
+            "kinetica_tpu_torch.calculators.kpm, "
+            "kinetica_tpu_torch.testing.fake_ase, "
+            "kinetica_tpu_torch.testing.explore_config, "
+            "kinetica_tpu_torch.testing.tst_bounds\n"
+            "from kinetica_tpu_torch.testing import fake_ase\n"
+            "fake_ase.install(); fake_ase.uninstall()\n"
             "kinetica_tpu_torch.solve_network, "
             "kinetica_tpu_torch.find_steady_state_ensemble, "
             "kinetica_tpu_torch.solve_adjoint_gradient, "
             "kinetica_tpu_torch.solve_network_sensitivities, "
             "kinetica_tpu_torch.morris_screening, "
             "kinetica_tpu_torch.reduce_network_drgep, "
-            "kinetica_tpu_torch.save_output\n"
+            "kinetica_tpu_torch.save_output, "
+            "kinetica_tpu_torch.explore_network, "
+            "kinetica_tpu_torch.ASENEBCalculator, "
+            "kinetica_tpu_torch.KPMCollisionCalculator\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'kinetica_tpu' or m.startswith('kinetica_tpu.')]\n"
             "assert not bad, bad\n"
