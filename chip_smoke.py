@@ -75,6 +75,24 @@ The chemistry layer, the calculators and exploration:
   CC <-> C=C + H2 and a ``TSTCalculator`` at the nc=24 width, card
   against CPU.
 
+The sharded ensemble and profiling:
+
+* phase 19: ``EnsembleProblem`` over a process mesh of four gloo ranks
+  sharing the card (``kinetica_tpu_torch.testing.sharded_ranks``), 8 of
+  phase 5's ramps at nc=24: 19a a (batch=2, model=2) mesh in phase 5's
+  continuous configuration (each model rank 548 of the 1096 padded
+  reactions, the fused RHS on its block), 19b the same mesh in phase 7's
+  discrete one (``inv_fused`` + ``dd``) over the first 1 s, 19c a (4,)
+  batch mesh; every rank's solution bit-equal to every other's, within
+  1e-8 mole fraction of the unsharded solve of the same members (19c: its
+  last block within the batch axis's rtol 1e-6 / atol 1e-12 of that
+  block's unsharded solve), member 0 within 1e-6 of scipy-BDF, each rank's
+  block kernels against their plain versions and launched in every rank;
+* phase 20: ``utils.profiling.trace`` around phase 6's ``solve_network``
+  cut to one chunk with an ``annotate`` span (the Chrome trace must hold
+  the span and the kernels' device events), ``Timings`` with the
+  reference's three sections.
+
 Each path is held against a pure-numpy scipy-BDF reference (or the
 reference named above), and every kernel of a path must have launched
 during that path's run (the counts are set to 0, and the once-per-process
@@ -96,9 +114,9 @@ or over 20 calls back to back where a graph cannot capture it), beside
 ``bound_ms`` (the bytes or the operations of the work at the H100's
 peak rates); the Newton solve also at B = 1, the single solve's shape.
 The ``kernels`` line also gives each kernel's launches per step on each
-path (phases 5-18), its forward-mode rule with phase 4g's check, the
-Newton solve's tangent launches in phase 4g and its device ms per step
-on phases 6, 7 and 9.
+path (phases 5-20; per rank on 19a-19c), its forward-mode rule with phase
+4g's check, the Newton solve's tangent launches in phase 4g and its device
+ms per step on phases 6, 7 and 9.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA GPU. Exits non-zero, printing no result line, when there is
@@ -108,6 +126,7 @@ fails. The last line of standard output is the JSON result.
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1301,6 +1320,271 @@ def phase_calculators(dev, counts, record, tmp, sd17, rd17):
         f"| phase 18 {time.perf_counter() - t_start:.1f} s")
 
 
+# phase 19's members: 8 of phase 5's 64 ramps, member 0 first
+SHARD_MEMBERS = slice(0, BATCH, 8)
+M22 = ((2, 2), ("batch", "model"))
+
+
+def _worst_ratio(u, ref, rtol, atol):
+    """max |u - ref| / (atol + rtol |ref|): <= 1 where u is within."""
+    return float(np.max(np.abs(u - ref) / (atol + rtol * np.abs(ref))))
+
+
+# phase 19b's horizon, cut from TF to fit phases 19-20 in ~150 s: at 7 s
+# the discrete sharded solve took 3729 steps and 115 s on the card
+SHARD_TF_DISCRETE = 2 * CHUNK
+# the bound of a sharded solve against the unsharded one (mole fraction):
+# twice the spread of two equally valid unsharded solves of the same
+# members on the card (5.0e-9, B=64 vs B=8), which already exceeds the
+# reference's rtol/atol by up to 5.8x (segment-sum against matmul J)
+SHARD_MAX_DIFF = 1e-8
+
+
+def phase_sharded(dev, record_ranks, ens5, ens7, cpu_final):
+    """Phase 19: the sharded ensemble over four gloo ranks sharing the card
+    (``kinetica_tpu_torch.testing.sharded_ranks``), 8 of phase 5's ramps
+    at the full width: 19a a (batch=2, model=2) mesh, phase 5's
+    continuous configuration; 19b the same mesh, phase 7's discrete one
+    over its first two chunks; 19c a (4,) batch mesh, continuous.
+    Every rank's solution must be bit-equal to every other's (the model
+    ranks' loops identical), within ``SHARD_MAX_DIFF`` of the unsharded
+    solve of the same members on the card (19a, 19c: B=8 here; 19b: phase
+    7's rows), 19c's last block within the batch axis's tolerance of its
+    unsharded B=2 solve, member 0 within 1e-6 of scipy-BDF, and each
+    rank's block kernels within 1e-12 of sum|N r| of their plain versions
+    at the shard's shape (B=4, nr=548). The reference's model-axis
+    tolerance is printed beside the spread between phase 5's and the B=8
+    unsharded solve of the same members."""
+    from kinetica_tpu_torch.parallel.batching import EnsembleProblem
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.testing.cpu_reference import (
+        scipy_bdf_discrete_baseline)
+    from kinetica_tpu_torch.testing.sharded_ranks import (ramp_problem,
+                                                          run_ranks)
+    rates = [float(r) for r in np.linspace(40.0, 60.0, BATCH)[SHARD_MEMBERS]]
+    pars = dict(abstol=ATOL, reltol=RTOL, jac_policy="lazy", lu_drift_tol=0.3,
+                linsolve="auto", rhs_contraction="auto")
+    base = dict(network=N_CARBONS, rates=rates, X0=500.0, tf=TF, chunk=CHUNK,
+                u0={f"C{N_CARBONS}": 1.0}, pars=pars)
+    cases = [
+        dict(base, name="19a", ts_update=None, rate_mode="continuous",
+             mesh=M22, sharding=M22, check_kernels=True),
+        dict(base, name="19b", ts_update=TS_UPDATE, mesh=M22, sharding=M22,
+             tf=SHARD_TF_DISCRETE, check_kernels=True,
+             pars=dict(pars, linsolve="inv_fused", rhs_contraction="dd")),
+        dict(base, name="19c", ts_update=None, rate_mode="continuous",
+             sharding=((4,), ("batch",)))]
+
+    t0 = time.perf_counter()
+    method, sd, rd, conds = ramp_problem(cases[0], dev)
+    plain, plain_s = timed_run(lambda: EnsembleProblem(
+        method, sd, rd, rate_mode="continuous", device=dev).solve(
+            conditions_list=conds))
+    # lanes round by their place in the batch: 19c's last block, members
+    # 6-7, is held to the unsharded solve of the same block
+    block = EnsembleProblem(method, sd, rd, rate_mode="continuous",
+                            device=dev).solve(conditions_list=conds[6:])
+    if not (plain.success and block.success):
+        fail(f"phase 19: the unsharded solves {plain.retcodes}, "
+             f"{block.retcodes}")
+    method_b, sd_b, rd_b, conds_b = ramp_problem(cases[1], dev)
+    conds_b[0].solve_variable_conditions(method_b.pars)
+    disc_final = scipy_bdf_discrete_baseline(
+        sd_b, rd_b, method_b.calculator, conds_b[0].get_profile("T"),
+        method_b.pars.tspan, make_u0(sd_b, method_b.pars), RTOL, ATOL,
+        conds_b[0].get_tstops())
+    refs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        ranked = run_ranks(4, {"device": dev.type, "timeout_s": 300,
+                               "cases": cases}, wait_s=900)
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f"phase 19: the ranks failed: {exc}")
+    ranks_s = time.perf_counter() - t0
+    n_b = int(SHARD_TF_DISCRETE / CHUNK) + 1
+    refs = {"19a": (plain.u, 5e-4), "19c": (plain.u, 5e-4),
+            "19b": (ens7.u[SHARD_MEMBERS, :n_b], 1e-4)}
+    spread = float(np.max(np.abs(ens5.u[SHARD_MEMBERS] - plain.u)))
+    spread_r = _worst_ratio(ens5.u[SHARD_MEMBERS], plain.u, 5e-4, 1e-10)
+    finals = {"19a": cpu_final, "19b": disc_final, "19c": cpu_final}
+    needed = {"19a": ("fused_rhs", "gj_inverse", "grid_probe"),
+              "19b": ("dd_contract", "newton_solve", "gj_inverse",
+                      "grid_probe"),
+              "19c": ("fused_rhs", "gj_inverse", "grid_probe")}
+    walls, failed = [], []
+    for case in cases:
+        name = case["name"]
+        rs = [r[name] for r in ranked]
+        u = rs[0]["u"]
+        if not all(r["retcodes"] == ["Success"] * len(rates) for r in rs):
+            fail(f"phase {name}: not every lane DONE: "
+                 f"{[r['retcodes'] for r in rs]}")
+        if u.shape != (len(rates), 1 + round(case["tf"] / CHUNK), sd.n) or \
+                not np.all(np.isfinite(u)):
+            fail(f"phase {name}: bad solution array {u.shape}")
+        if not all(np.array_equal(r["u"], u) and r["rank_spread"] == 0.0
+                   for r in rs):
+            fail(f"phase {name}: the ranks' solutions differ (spreads "
+                 f"{[r['rank_spread'] for r in rs]})")
+        ref, rtol = refs[name]
+        d_max = float(np.max(np.abs(u - ref)))
+        held = (f"vs unsharded {'phase 7' if name == '19b' else 'B=8'} max "
+                f"|d| {d_max:.3e} (<= {SHARD_MAX_DIFF:g}; "
+                f"{_worst_ratio(u, ref, rtol, 1e-10):.3f} of rtol {rtol} / "
+                f"atol 1e-10)")
+        if not d_max <= SHARD_MAX_DIFF:
+            failed.append(f"phase {name}: sharded vs unsharded max |d| "
+                          f"{d_max:.3e} (> {SHARD_MAX_DIFF:g})")
+        if name == "19c":
+            ratio_b = _worst_ratio(u[6:], block.u, 1e-6, 1e-12)
+            held += (f"; members 6-7 vs their unsharded B=2 solve "
+                     f"{ratio_b:.3f} of rtol 1e-6 / atol 1e-12 (max |d| "
+                     f"{float(np.max(np.abs(u[6:] - block.u))):.3e})")
+            if not ratio_b <= 1.0:
+                failed.append(f"phase 19c: members 6-7 vs their B=2 solve "
+                              f"off by {ratio_b:.3f} of rtol 1e-6 / 1e-12")
+        err0 = final_err(u[0, -1], finals[name])
+        if err0 > 1e-6:
+            failed.append(f"phase {name}: member 0 vs scipy-BDF {err0:.3e}")
+        for rank, r in enumerate(rs):
+            require_launched(f"{name} rank {rank}", r["launches"],
+                             needed[name])
+        kern = ""
+        if case.get("check_kernels"):
+            errs = [(r["kernels"]["fused_rhs"], r["kernels"]["dd_contract"])
+                    for r in rs]
+            shapes = {tuple(r["kernels"]["shape"]) for r in rs}
+            blocks = [tuple(r["block"]) for r in rs]
+            nr = rd.nr + rd.nr % 2      # padded to the model axis
+            if (shapes != {(len(rates) // 2, nr // 2, sd.n)}
+                    or not max(max(e) for e in errs) <= 1e-12
+                    or {r["nr"] for r in rs} != {nr}):
+                failed.append(f"phase {name}: block kernels {errs} at "
+                              f"{shapes}, blocks {blocks}")
+            kern = (f"; block kernels at (B, nr, ns) {sorted(shapes)} vs "
+                    f"plain, max |d| / sum|N r| fused_rhs "
+                    f"{max(e[0] for e in errs):.3e}, dd_contract "
+                    f"{max(e[1] for e in errs):.3e}; blocks {blocks}")
+        steps = rs[0]["n_steps"]
+        s_max, s_med = int(steps.max()), int(np.median(steps))
+        wall = max(r["wall_s"] for r in rs)
+        walls.append(wall)
+        per_rank = [{k: round(v / s_max, 3) for k, v in r["launches"].items()
+                     if v} for r in rs]
+        record_ranks(name, [r["launches"] for r in rs], s_max)
+        say(f"phase {name} sharded ensemble, mesh "
+            f"{case['sharding'][0]} {case['sharding'][1]} over 4 gloo ranks "
+            f"on one card, {case.get('rate_mode', 'discrete')}, tf "
+            f"{case['tf']} s, {case['pars']['linsolve']} + "
+            f"{case['pars']['rhs_contraction']}: all DONE, ranks bit-equal; "
+            f"{held}; member 0 vs scipy-BDF {err0:.3e}; wall {wall:.3f} s; "
+            f"steps max/median {s_max}/{s_med}; "
+            f"{wall * 1e3 / s_max:.3f} ms/step; per rank host syncs/step "
+            f"{[round(r['host_syncs'] / s_max, 2) for r in rs]}, all_reduce/"
+            f"step {[round(r['all_reduces'] / s_max, 2) for r in rs]}, "
+            f"all_reduce share of wall "
+            f"{[round(r['all_reduce_s'] / r['wall_s'], 3) for r in rs]}; "
+            f"launches/step per rank {per_rank}{kern}")
+    p_steps = int(plain.stats["n_steps"].max())
+    say(f"phase 19: {ranks_s:.1f} s of ranks ({ranks_s - sum(walls):.1f} s "
+        f"start-up and set-up), references {refs_s:.1f} s (unsharded B=8 "
+        f"continuous {plain_s:.3f} s, {p_steps} steps, "
+        f"{plain_s * 1e3 / p_steps:.3f} ms/step); two unsharded solves of the "
+        f"same members (phase 5's B=64, B=8) part by max |d| {spread:.3e}, "
+        f"{spread_r:.3f} of rtol 5e-4 / atol 1e-10")
+    if failed:
+        fail("; ".join(failed))
+
+
+def trace_events(path):
+    """(category, name) of every event of a Chrome trace. Kineto writes an
+    event's "cat" just before its "name", so a regex reads a trace of
+    millions of events in seconds; a trace laid out otherwise is parsed
+    as JSON."""
+    with open(path) as fh:
+        text = fh.read()
+    pairs = re.findall(r'"cat":\s*"([^"]*)",\s*"name":\s*"((?:[^"\\]|\\.)*)"',
+                       text)
+    if pairs:
+        return pairs
+    return [(e.get("cat"), str(e.get("name")))
+            for e in json.loads(text)["traceEvents"]]
+
+
+def phase_profiling(dev, counts, record, tmp):
+    """Phase 20: ``utils.profiling`` on the card. ``trace`` around phase
+    6's ``solve_network`` cut to its first chunk (0.5 s: the host and
+    device events of its few hundred steps already make a trace of
+    millions of events) with one ``annotate`` span, and ``Timings`` over
+    it and phase 7's member 0 cut alike (discrete: the rate
+    pre-calculation): the trace must hold the span and the device events
+    of the path's kernels, the report the reference's three sections; the
+    traced solve must equal an untraced one bit for bit."""
+    import torch
+    from kinetica_tpu_torch.solving.methods import (VariableODESolve,
+                                                    solve_network)
+    from kinetica_tpu_torch.utils.profiling import Timings, annotate, trace
+
+    tf = CHUNK
+    sd, rd, calc, conds, pars = build_problem(
+        dev, tf=tf, linsolve="inv_fused", rhs_contraction="dd")
+    sd7, rd7, calc7, conds7, pars7 = build_problem(
+        dev, ts_update=TS_UPDATE, tf=tf, linsolve="inv_fused",
+        rhs_contraction="dd")
+    span = "chip_smoke.phase20"
+    logdir = os.path.join(tmp, "trace")
+    plain, plain_s = timed_run(lambda: solve_network(
+        VariableODESolve(pars, conds[0], calc), sd, rd, device=dev))
+    Timings.reset()
+    Timings.enable(True)
+    try:
+        counts.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with trace(logdir) as path:
+            with annotate(span):
+                out = solve_network(VariableODESolve(pars, conds[0], calc),
+                                    sd, rd, device=dev)
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        launches, syncs = counts.read()
+        out7 = solve_network(VariableODESolve(pars7, conds7[0], calc7), sd7,
+                             rd7, device=dev)
+        rep = Timings.report(log=False)
+    finally:
+        Timings.enable(False)
+        Timings.reset()
+    if not (out.sol.success and out7.sol.success):
+        fail(f"phase 20: {out.sol.retcode}, {out7.sol.retcode}")
+    if not np.array_equal(out.sol.u, plain.sol.u):
+        fail("phase 20: the traced solve differs from the untraced one")
+    events = trace_events(path)
+    device = {}
+    for cat, name in events:
+        if cat == "kernel":
+            for k in ("dd_contract", "newton_solve", "gj_inverse"):
+                if f"{k}_kernel" in name:
+                    device[k] = device.get(k, 0) + 1
+    spans = [name for _, name in events if name == span]
+    if set(device) != {"dd_contract", "newton_solve", "gj_inverse"} or not spans:
+        fail(f"phase 20: device events {device}, span events {len(spans)}")
+    sections = ("solve.calculator_setup", "solve.chunk_dispatch",
+                "solve.rate_precalc")
+    if not all(rep.get(s, {}).get("count", 0) >= 1 for s in sections):
+        fail(f"phase 20: Timings report {rep}")
+    require_launched(20, launches, ("dd_contract", "newton_solve",
+                                    "gj_inverse"))
+    steps = out.sol.stats["n_steps"]
+    record("20", launches, steps)
+    say(f"phase 20 profiling: phase 6 cut to tf {tf} s, {steps} steps, "
+        f"traced {traced_s:.3f} s vs untraced {plain_s:.3f} s (bit-equal); "
+        f"trace {os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events, "
+        f"device events {device} (launches {launches}), span "
+        f"{len(spans)}x; host syncs {syncs}; Timings "
+        + "; ".join(f"{k} {v['count']}x {v['total_s']:.3f} s"
+                    for k, v in rep.items()))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2090,6 +2374,22 @@ def main() -> None:
         phase_calculators(dev, counts, record, tmp, res17.sd, res17.rd)
         check17()
     say(f"phases 17-18: {time.perf_counter() - t0:.1f} s on this card")
+
+    # ---- phases 19-20: the sharded ensemble and profiling ----
+    def record_ranks(phase, launches_by_rank, steps):
+        """A sharded path's launches, and each rank's launches per step."""
+        for kname in KERNELS:
+            total[kname] += sum(la[kname] for la in launches_by_rank)
+            per_step[kname][phase] = [la[kname] / steps
+                                      for la in launches_by_rank]
+
+    t0 = time.perf_counter()
+    phase_sharded(dev, record_ranks, ens, ens7, cpu_final)
+    t19 = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_profiling(dev, counts, record, tmp)
+    say(f"phases 19-20: {t19:.1f} + {time.perf_counter() - t0 - t19:.1f} s "
+        "on this card")
 
     for kname in KERNELS:
         kernels[kname]["launches"] = total[kname]

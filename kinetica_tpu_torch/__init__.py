@@ -7,14 +7,17 @@ and the JAX package's Pallas kernels as five CUDA C++ kernels under
 Gauss-Jordan inverse, the fused Newton solve and the grid probe). Paths
 it runs: ``solve_network`` (static, continuous and discrete rates,
 complete or chunkwise, BDF or RK45, f64 or f32 state), the batched
-ensemble (``EnsembleProblem``, ``solve_network_ensemble``), steady states
+ensemble (``EnsembleProblem``, ``solve_network_ensemble``; over a process
+mesh of ``torch.distributed`` ranks, members split over ``"batch"`` and
+reactions over ``"model"``: ``parallel.sharding``), steady states
 single and batched with their sensitivities, the adjoint gradient, the
 forward sensitivities (tangents through the kernels' forward-mode
 rules), the analysis layer (save/load, fluxes, Morris, Sobol,
 DRG/DRGEP, graph export, plots), the chemistry layer and the TST,
 ASE-NEB and KPM calculators, and CRN exploration (``explore_network``
 over the native ``cde_lite`` sampler, each level gated by a kinetic solve
-on the device). It never imports jax.
+on the device), with host section timers and a ``torch.profiler`` trace
+(``utils.profiling``). It never imports jax.
 
 Importing the package sets the float32 matmul precision policy (see
 :mod:`kinetica_tpu_torch.precision`): every f32 product the solver makes

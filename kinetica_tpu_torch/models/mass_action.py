@@ -166,6 +166,19 @@ class MassActionNetwork(nn.Module):
         """A copy whose stoichiometry is in ``dtype`` (e.g. the f32 Jacobian net)."""
         return MassActionNetwork(self.reac_slots, self.N.to(dtype), self.delta)
 
+    def block(self, lo: int, hi: int) -> "MassActionNetwork":
+        """The reactions ``[lo, hi)`` as a network of their own (a model
+        rank's share of a reaction-sharded solve). Every kinetics function
+        of the block, given that block's k, returns its share of the whole
+        network's: rates, ``rhs`` and each Jacobian form sum over the
+        block's reactions only, so the shares of a partition add up to
+        the network's value."""
+        if not 0 <= lo <= hi <= self.nr:
+            raise ValueError(f"reaction block [{lo}, {hi}) outside "
+                             f"[0, {self.nr})")
+        return MassActionNetwork(self.reac_slots[lo:hi], self.N[lo:hi],
+                                 self.delta)
+
 
 def build_mass_action(rd: RxData, ns: int, device=DEFAULT_DEVICE,
                       dtype=torch.float64, min_arity: int = 2,

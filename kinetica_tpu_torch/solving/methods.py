@@ -18,6 +18,10 @@ batch of one lane of the batched BDF (:mod:`kinetica_tpu_torch.ops.bdf`).
 * ``pars.solver="rk45"`` integrates with the explicit Dormand-Prince
   solver (:mod:`kinetica_tpu_torch.ops.rk45`), the rate lookup folded
   into every stage.
+* With :class:`~kinetica_tpu_torch.utils.profiling.Timings` enabled, the
+  reference's host sections are timed: ``solve.calculator_setup``,
+  ``solve.rate_precalc`` (discrete rates) and ``solve.chunk_dispatch``
+  (each group of ``chunks_per_dispatch`` chunks).
 
 The port resolves the reference's "auto" choices to its accelerator
 algorithm on every device: the RHS of an f64 network goes through the
@@ -48,6 +52,7 @@ from ..ops.interp import left_constant_lookup
 from ..ops.linalg import resolve_linsolve
 from ..utils.interpolation import TimeSeries
 from ..utils.logging import logger
+from ..utils.profiling import timed
 from ..utils.time_units import create_savepoints
 from .filters import RxFilter
 from .params import ODESimulationParams
@@ -435,25 +440,29 @@ def _run_chunkwise(rhs, jac, u0, pars: ODESimulationParams,
         warm = None
         acc = dict.fromkeys(STAT_KEYS, 0)
         ys_parts = []
-        for nc in range(n_chunks):
-            status, ys, u, st = _integrate(
-                pars, rhs, jac, u, 0.0, chunkstep, saveat_local, reltol,
-                abstol, stops_rows[nc], (nc * chunkstep, args_payload),
-                first_step=h, prepare=prepare, warm_start=warm)
-            worst = min(worst, status)
-            for k in STAT_KEYS:
-                acc[k] += st[k]
-            h = st["h"]
-            if use_warm:
-                warm = st["warm"]
-            ys_parts.append(ys)
-            if pars.progress and ((nc + 1) % group == 0
-                                  or nc + 1 == n_chunks):
-                logger.info("   - Chunkwise ODE: %d/%d chunks", nc + 1,
-                            n_chunks)
+        for lo in range(0, n_chunks, group):
+            hi = min(lo + group, n_chunks)
+            with timed("solve.chunk_dispatch"):
+                for nc in range(lo, hi):
+                    status, ys, u, st = _integrate(
+                        pars, rhs, jac, u, 0.0, chunkstep, saveat_local,
+                        reltol, abstol, stops_rows[nc],
+                        (nc * chunkstep, args_payload), first_step=h,
+                        prepare=prepare, warm_start=warm)
+                    worst = min(worst, status)
+                    for k in STAT_KEYS:
+                        acc[k] += st[k]
+                    h = st["h"]
+                    if use_warm:
+                        warm = st["warm"]
+                    ys_parts.append(ys)
+                    if status != bdf.DONE:
+                        break
             if status != bdf.DONE:
                 # a failed solve is retried or raises: the rest is moot
                 break
+            if pars.progress:
+                logger.info("   - Chunkwise ODE: %d/%d chunks", hi, n_chunks)
         return worst, (ys_parts, acc)
 
     status, (ys_parts, acc), attempts = _adaptive_device_solve(solve_fn, pars)
@@ -512,7 +521,8 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
     logger.info("   - Removed %d filtered reactions from network", int(mask.sum()))
 
     logger.info(" - Performing calculator-specific network setup.")
-    calc.setup_network(sd_active, rd_active)
+    with timed("solve.calculator_setup"):
+        calc.setup_network(sd_active, rd_active)
 
     logger.info(" - Removing low-rate reactions")
     apply_low_k_cutoff(rd_active, calc, pars, conditions)
@@ -543,8 +553,9 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
         global_stops = None
     elif update_mode == "discrete":
         logger.info(" - Pre-calculating rate constants at discrete time intervals.")
-        tstops, k_table = calculate_discrete_rates(conditions, calc,
-                                                   rd_active.nr)
+        with timed("solve.rate_precalc"):
+            tstops, k_table = calculate_discrete_rates(conditions, calc,
+                                                       rd_active.nr)
         # one host-to-device copy of the table per solve
         payload = (torch.as_tensor(tstops, **f64),
                    torch.as_tensor(k_table, **fst))

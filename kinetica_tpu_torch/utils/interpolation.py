@@ -4,8 +4,8 @@ TPU-native analog of the reference's ``DiffEqArray`` + linear-interp functor
 (Julia reference src/utils.jl:135-139 and RecursiveArrayTools). Stores a
 time grid ``t`` (shape (nt,)) and values ``u`` (shape (nt, ...)) as plain
 numpy arrays on the host; calling the object interpolates (linearly, with
-left-continuity at exact knots) at new times. Device-side interpolation for
-traced code lives in :mod:`kinetica_tpu.ops.interp` (not ported yet).
+left-continuity at exact knots) at new times. The device-side lookup of
+the solvers lives in :mod:`kinetica_tpu_torch.ops.interp`.
 """
 from __future__ import annotations
 

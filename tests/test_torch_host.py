@@ -141,7 +141,10 @@ def test_port_never_imports_jax():
             "import kinetica_tpu_torch.ops.fused_rhs, "
             "kinetica_tpu_torch.ops.gj_inverse, kinetica_tpu_torch.ops.linalg\n"
             "import kinetica_tpu_torch.ops.bdf, "
-            "kinetica_tpu_torch.parallel.batching\n"
+            "kinetica_tpu_torch.parallel.batching, "
+            "kinetica_tpu_torch.parallel.sharding, "
+            "kinetica_tpu_torch.utils.profiling, "
+            "kinetica_tpu_torch.testing.sharded_ranks\n"
             "import kinetica_tpu_torch.ops.dd_contract, "
             "kinetica_tpu_torch.ops.newton_solve, "
             "kinetica_tpu_torch.ops.grid_probe, kinetica_tpu_torch.ops.interp\n"
