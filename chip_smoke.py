@@ -64,8 +64,8 @@ The chemistry layer, the calculators and exploration:
   of ``scripts/bench_explore.py 64`` (4 levels from CC over the native
   ``cde_lite`` sampler, each gated by the 64-ramp discrete ensemble):
   the species/reactions of each level against the JAX package's record,
-  members 0 and 63 of every gate against scipy-BDF (in a process pool,
-  beside phase 18), the seeds against those
+  members 0 and 63 of every gate against scipy-BDF (in a process pool
+  beside phases 18-20), the seeds against those
   references, the fused RHS and Gauss-Jordan kernels against their plain
   versions at each gate's shapes, the checkpoint loading back, the native
   chem library and ``cde_lite`` built under ``kinetica_tpu_torch/_build``;
@@ -79,10 +79,10 @@ The sharded ensemble and profiling:
 
 * phase 19: ``EnsembleProblem`` over a process mesh of four gloo ranks
   sharing the card (``kinetica_tpu_torch.testing.sharded_ranks``), 8 of
-  phase 5's ramps at nc=24: 19a a (batch=2, model=2) mesh in phase 5's
-  continuous configuration (each model rank 548 of the 1096 padded
-  reactions, the fused RHS on its block), 19b the same mesh in phase 7's
-  discrete one (``inv_fused`` + ``dd``) over the first 1 s, 19c a (4,)
+  phase 5's ramps at nc=24, each over the first 1 s: 19a a (batch=2,
+  model=2) mesh in phase 5's continuous configuration (each model rank 548
+  of the 1096 padded reactions, the fused RHS on its block), 19b the same
+  mesh in phase 7's discrete one (``inv_fused`` + ``dd``), 19c a (4,)
   batch mesh; every rank's solution bit-equal to every other's, within
   1e-8 mole fraction of the unsharded solve of the same members (19c: its
   last block within the batch axis's rtol 1e-6 / atol 1e-12 of that
@@ -92,6 +92,36 @@ The sharded ensemble and profiling:
   cut to one chunk with an ``annotate`` span (the Chrome trace must hold
   the span and the kernels' device events), ``Timings`` with the
   reference's three sections.
+
+The user programs:
+
+* phase 21: the examples (``kinetica_tpu_torch.examples``) through their
+  ``main`` at the JAX examples' published sizes, on the card:
+  ``getting_started`` (the explored network equal to the JAX package's
+  record, the final state against scipy-BDF, ``results.npz`` loading
+  back), ``pyrolysis_sweep`` (members 0 and 31 of the timed second solve
+  against scipy-BDF), ``analysis_pipeline`` (the Morris top 8, the Sobol
+  indices, the DRGEP kept reactions and the projected flux's top 4
+  channels against the port's CPU run of the same call, in the worker
+  pool), ``iterative_exploration`` and ``full_product`` (the species and
+  reactions by level equal to the JAX package's records, member 0 of the
+  last gate against scipy-BDF; ``full_product``'s DRGEP stage raises the
+  JAX package's own ``ValueError`` at its published settings, or meets
+  its tolerance);
+* phase 22: every Python block of ``docs/tutorials/*.md`` on the card
+  (``kinetica_tpu_torch.testing.tutorials``), the package name the only
+  change; the blocks that need matplotlib are named as not run where it
+  is not installed.
+
+Once the kernels are timed (phases 2-4g), three processes of their own
+share the card with the main one: phase 21's examples in two, phase 22
+in a third and phases 11 and 14-16 in a fourth; they run beside phases
+5-20 and report their lines and launches at the end. Each process's CPU
+references run in a worker pool of its own beside its card work; phase
+17's are checked after phase 20. Phase 20 runs last in its process: in a
+process that has run a ``torch.profiler`` session launches cost more.
+Every process this script starts dies with it, and a failure or a
+SIGTERM kills them first.
 
 Each path is held against a pure-numpy scipy-BDF reference (or the
 reference named above), and every kernel of a path must have launched
@@ -114,7 +144,7 @@ or over 20 calls back to back where a graph cannot capture it), beside
 ``bound_ms`` (the bytes or the operations of the work at the H100's
 peak rates); the Newton solve also at B = 1, the single solve's shape.
 The ``kernels`` line also gives each kernel's launches per step on each
-path (phases 5-20; per rank on 19a-19c), its forward-mode rule with phase
+path (phases 5-22; per rank on 19a-19c), its forward-mode rule with phase
 4g's check, the Newton solve's tangent launches in phase 4g and its device
 ms per step on phases 6, 7 and 9.
 
@@ -123,10 +153,15 @@ with one CUDA GPU. Exits non-zero, printing no result line, when there is
 no GPU, when the package is not next to this script, or when any phase
 fails. The last line of standard output is the JSON result.
 """
+import contextlib
+import gc
+import io
 import json
 import multiprocessing
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -152,7 +187,53 @@ LIBRARY_INV = "torch.linalg.inv_ex, loop_ms"
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    kill_children()
     sys.exit(1)
+
+
+def kill_children() -> None:
+    """Kill and reap every process this one started (pool workers, ranks);
+    theirs die with them (``die_with_parent``)."""
+    for p in multiprocessing.active_children():
+        p.kill()
+    for p in multiprocessing.active_children():
+        p.join(10)
+
+
+def stop_resource_tracker() -> None:
+    """Stop multiprocessing's resource tracker and reap it: started with
+    this process's first pool, it would otherwise outlive this process as
+    an orphan. Registrations after this are dropped (their semaphores are
+    still unlinked by their finalizers)."""
+    from multiprocessing import resource_tracker
+    tracker = resource_tracker._resource_tracker
+    fd, pid = tracker._fd, tracker._pid
+    tracker.ensure_running = tracker._send = lambda *args: None
+    if fd is None or pid is None:
+        return
+    tracker._fd = tracker._pid = None
+    os.close(fd)      # the tracker ends when its last writer closes
+    deadline = time.monotonic() + 10.0
+    while not os.waitpid(pid, os.WNOHANG)[0]:
+        if time.monotonic() > deadline:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+            return
+        time.sleep(0.05)
+
+
+def _worker_init() -> None:
+    """A pool worker: dies with the process that started it, and takes two
+    of the host's cores for its CPU work."""
+    import torch
+    from kinetica_tpu_torch.testing.sharded_ranks import die_with_parent
+    die_with_parent()
+    torch.set_num_threads(2)
+
+
+def spawn_pool(n: int) -> ProcessPoolExecutor:
+    return ProcessPoolExecutor(n, mp_context=multiprocessing.get_context(
+        "spawn"), initializer=_worker_init)
 
 
 def say(msg: str) -> None:
@@ -357,19 +438,58 @@ def phase_steady_state(dev, counts, record):
 JAX_ADJOINT = (1.1205e-6, [872, 0, 145, 144, 926])
 
 
-def phase_adjoint(dev, counts, record):
-    """Phase 11: the adjoint gradient of u_C1(0.05 s) at 650 K w.r.t. every
-    ln k, on the card and with the plain versions on the CPU; the top
-    three against central differences of scipy-BDF."""
+ADJOINT_T, ADJOINT_TF = 650.0, 0.05
+
+
+def _adjoint_weights(sd):
+    w = np.zeros(sd.n)
+    w[sd.toInt["C1"]] = 1.0
+    return w
+
+
+def _adjoint_reference(_):
+    """Phase 11's gradient with the plain versions on the CPU, and central
+    differences of scipy-BDF for its three largest entries (a worker's
+    job, run beside phase 11 on the card)."""
+    import torch
     from kinetica_tpu_torch.models.mass_action import resolve_clip_delta
     from kinetica_tpu_torch.solving import adjoint
     from kinetica_tpu_torch.solving.solve_utils import make_u0
     from kinetica_tpu_torch.testing.cpu_reference import scipy_bdf_static
 
-    T, tf = 650.0, 0.05
+    torch.set_num_threads(2)
+    method, sd, rd = static_method("cpu", ADJOINT_T, ADJOINT_TF)
+    w = _adjoint_weights(sd)
+    t0 = time.perf_counter()
+    grad, g = adjoint.solve_adjoint_gradient(method, sd, rd, w, n_nodes=257,
+                                             device="cpu")
+    cpu_s = time.perf_counter() - t0
+    k = method.calculator(ADJOINT_T).numpy()
+    u0 = make_u0(sd, method.pars)
+    fd = {}
+    t0 = time.perf_counter()
+    for j in [int(j) for j in np.argsort(-np.abs(grad))[:3]]:
+        gs = []
+        for sign in (1.0, -1.0):
+            kj = k.copy()
+            kj[j] *= np.exp(sign * 1e-3)
+            gs.append(float(w @ scipy_bdf_static(
+                sd, rd, kj, ADJOINT_TF, u0, 1e-10, 1e-20,
+                resolve_clip_delta(method.pars))))
+        fd[j] = (gs[0] - gs[1]) / 2e-3
+    return grad, g, fd, cpu_s, time.perf_counter() - t0
+
+
+def phase_adjoint(dev, counts, record, reference):
+    """Phase 11: the adjoint gradient of u_C1(0.05 s) at 650 K w.r.t. every
+    ln k, on the card and with the plain versions on the CPU (the future
+    ``reference`` of :func:`_adjoint_reference`); the top three against
+    central differences of scipy-BDF."""
+    from kinetica_tpu_torch.solving import adjoint
+
+    T, tf = ADJOINT_T, ADJOINT_TF
     method, sd, rd = static_method(dev, T, tf)
-    w = np.zeros(sd.n)
-    w[sd.toInt["C1"]] = 1.0
+    w = _adjoint_weights(sd)
     counts.reset()
     (grad, g), wall = timed_run(lambda: adjoint.solve_adjoint_gradient(
         method, sd, rd, w, n_nodes=257, device=dev))
@@ -384,11 +504,9 @@ def phase_adjoint(dev, counts, record):
              f"factors forward {fwd['n_lu']} backward {bwd['n_lu']}")
     if grad.shape != (rd.nr,) or not np.all(np.isfinite(grad)):
         fail(f"phase 11: bad gradient {grad.shape}")
-    method_c, sd_c, rd_c = static_method("cpu", T, tf)
     t0 = time.perf_counter()
-    grad_c, g_c = adjoint.solve_adjoint_gradient(method_c, sd_c, rd_c, w,
-                                                 n_nodes=257, device="cpu")
-    cpu_s = time.perf_counter() - t0
+    grad_c, g_c, fd, cpu_s, fd_s = reference.result()
+    wait_s = time.perf_counter() - t0
     scale = float(np.abs(grad_c).max())
     d = float(np.abs(grad - grad_c).max())
     top = [int(j) for j in np.argsort(-np.abs(grad))[:5]]
@@ -397,20 +515,6 @@ def phase_adjoint(dev, counts, record):
             and abs(g - g_c) <= 1e-6 * abs(g_c)):
         fail(f"phase 11: card vs CPU: max |d grad| {d:.3e} (max |grad| "
              f"{scale:.3e}), top-5 {top} vs {top_c}, g {g:.10e} vs {g_c:.10e}")
-    k = method.calculator(T).cpu().numpy()
-    u0 = make_u0(sd, method.pars)
-    fd = {}
-    t0 = time.perf_counter()
-    for j in top[:3]:
-        gs = []
-        for sign in (1.0, -1.0):
-            kj = k.copy()
-            kj[j] *= np.exp(sign * 1e-3)
-            gs.append(float(w @ scipy_bdf_static(
-                sd, rd, kj, tf, u0, 1e-10, 1e-20,
-                resolve_clip_delta(method.pars))))
-        fd[j] = (gs[0] - gs[1]) / 2e-3
-    fd_s = time.perf_counter() - t0
     fd_rel = {j: abs(grad[j] - v) / abs(v) for j, v in fd.items()}
     if max(fd_rel.values()) > 0.05:
         fail(f"phase 11: gradient vs central differences {fd_rel} (> 5%)")
@@ -428,7 +532,8 @@ def phase_adjoint(dev, counts, record):
         f"{bwd['n_steps']} (factors {fwd['n_lu']} / {bwd['n_lu']}, J "
         f"evaluations {fwd['n_jev']} / {bwd['n_jev']}); {wall:.3f} s "
         f"({wall * 1e3 / steps:.3f} ms/step), CPU run {cpu_s:.3f} s, "
-        f"differences {fd_s:.3f} s on this host; host syncs {syncs} "
+        f"differences {fd_s:.3f} s on this host in a worker beside phase "
+        f"11 (waited {wait_s:.3f} s); host syncs {syncs} "
         f"({syncs / steps:.2f}/step); launches {launches} "
         f"({sum(launches.values()) / steps:.2f} of these kernels/step)")
     record("11", launches, steps)
@@ -1092,7 +1197,8 @@ def phase_explore(dev, counts, record, tmp, pool):
             f"{t['host_syncs'] / steps:.2f}/step")
     # once member 63 (1400 K) nears its equilibrium scipy-BDF's step
     # stalls near 1e-5 s (~2.5e4 steps a 1 s chunk, against ~70 of the
-    # port's BDF), so the references run side by side, beside phase 18
+    # port's BDF), so the references run side by side, beside the later
+    # phases
     futures = [pool.submit(_discrete_reference, (
         e["sd"], e["rd"], calc, conds[b].get_profile("T"), e["sol"].t,
         make_u0(e["sd"], pars), pars.reltol, pars.abstol,
@@ -1135,8 +1241,9 @@ def phase_explore(dev, counts, record, tmp, pool):
                 f"{np.abs(card_max - em.seed_conc).min():.4f})")
         say(f"phase 17 references: members 0/{BATCH - 1} of every gate vs "
             f"scipy-BDF (<= 1e-6) and the seeds recomputed from them "
-            f"({len(futures)} references in a process pool beside phase 18, "
-            f"waited {wait_s:.2f} s after it): " + " | ".join(lines))
+            f"({len(futures)} references in a process pool beside phases "
+            f"18-20, waited {wait_s:.2f} s after them): "
+            + " | ".join(lines))
 
     return res, check_references
 
@@ -1332,7 +1439,7 @@ def _worst_ratio(u, ref, rtol, atol):
 
 # phase 19b's horizon, cut from TF to fit phases 19-20 in ~150 s: at 7 s
 # the discrete sharded solve took 3729 steps and 115 s on the card
-SHARD_TF_DISCRETE = 2 * CHUNK
+SHARD_TF = 2 * CHUNK
 # the bound of a sharded solve against the unsharded one (mole fraction):
 # twice the spread of two equally valid unsharded solves of the same
 # members on the card (5.0e-9, B=64 vs B=8), which already exceeds the
@@ -1340,12 +1447,12 @@ SHARD_TF_DISCRETE = 2 * CHUNK
 SHARD_MAX_DIFF = 1e-8
 
 
-def phase_sharded(dev, record_ranks, ens5, ens7, cpu_final):
+def phase_sharded(dev, record_ranks, ens5, ens7):
     """Phase 19: the sharded ensemble over four gloo ranks sharing the card
     (``kinetica_tpu_torch.testing.sharded_ranks``), 8 of phase 5's ramps
-    at the full width: 19a a (batch=2, model=2) mesh, phase 5's
-    continuous configuration; 19b the same mesh, phase 7's discrete one
-    over its first two chunks; 19c a (4,) batch mesh, continuous.
+    at the full width, each over the ramps' first two chunks (1 s): 19a a
+    (batch=2, model=2) mesh, phase 5's continuous configuration; 19b the
+    same mesh, phase 7's discrete one; 19c a (4,) batch mesh, continuous.
     Every rank's solution must be bit-equal to every other's (the model
     ranks' loops identical), within ``SHARD_MAX_DIFF`` of the unsharded
     solve of the same members on the card (19a, 19c: B=8 here; 19b: phase
@@ -1358,19 +1465,20 @@ def phase_sharded(dev, record_ranks, ens5, ens7, cpu_final):
     from kinetica_tpu_torch.parallel.batching import EnsembleProblem
     from kinetica_tpu_torch.solving.solve_utils import make_u0
     from kinetica_tpu_torch.testing.cpu_reference import (
-        scipy_bdf_discrete_baseline)
+        scipy_bdf_baseline, scipy_bdf_discrete_baseline)
     from kinetica_tpu_torch.testing.sharded_ranks import (ramp_problem,
                                                           run_ranks)
     rates = [float(r) for r in np.linspace(40.0, 60.0, BATCH)[SHARD_MEMBERS]]
     pars = dict(abstol=ATOL, reltol=RTOL, jac_policy="lazy", lu_drift_tol=0.3,
                 linsolve="auto", rhs_contraction="auto")
-    base = dict(network=N_CARBONS, rates=rates, X0=500.0, tf=TF, chunk=CHUNK,
+    base = dict(network=N_CARBONS, rates=rates, X0=500.0, tf=SHARD_TF,
+                chunk=CHUNK,
                 u0={f"C{N_CARBONS}": 1.0}, pars=pars)
     cases = [
         dict(base, name="19a", ts_update=None, rate_mode="continuous",
              mesh=M22, sharding=M22, check_kernels=True),
         dict(base, name="19b", ts_update=TS_UPDATE, mesh=M22, sharding=M22,
-             tf=SHARD_TF_DISCRETE, check_kernels=True,
+             check_kernels=True,
              pars=dict(pars, linsolve="inv_fused", rhs_contraction="dd")),
         dict(base, name="19c", ts_update=None, rate_mode="continuous",
              sharding=((4,), ("batch",)))]
@@ -1387,6 +1495,9 @@ def phase_sharded(dev, record_ranks, ens5, ens7, cpu_final):
     if not (plain.success and block.success):
         fail(f"phase 19: the unsharded solves {plain.retcodes}, "
              f"{block.retcodes}")
+    _, cont_final = scipy_bdf_baseline(
+        sd, rd, method.calculator, conds[0].get_profile("T"),
+        method.pars.tspan, make_u0(sd, method.pars), RTOL, ATOL, best_of=1)
     method_b, sd_b, rd_b, conds_b = ramp_problem(cases[1], dev)
     conds_b[0].solve_variable_conditions(method_b.pars)
     disc_final = scipy_bdf_discrete_baseline(
@@ -1401,12 +1512,13 @@ def phase_sharded(dev, record_ranks, ens5, ens7, cpu_final):
     except (RuntimeError, TimeoutError) as exc:
         fail(f"phase 19: the ranks failed: {exc}")
     ranks_s = time.perf_counter() - t0
-    n_b = int(SHARD_TF_DISCRETE / CHUNK) + 1
+    n_b = int(SHARD_TF / CHUNK) + 1
     refs = {"19a": (plain.u, 5e-4), "19c": (plain.u, 5e-4),
             "19b": (ens7.u[SHARD_MEMBERS, :n_b], 1e-4)}
-    spread = float(np.max(np.abs(ens5.u[SHARD_MEMBERS] - plain.u)))
-    spread_r = _worst_ratio(ens5.u[SHARD_MEMBERS], plain.u, 5e-4, 1e-10)
-    finals = {"19a": cpu_final, "19b": disc_final, "19c": cpu_final}
+    u5 = ens5.u[SHARD_MEMBERS, :n_b]
+    spread = float(np.max(np.abs(u5 - plain.u)))
+    spread_r = _worst_ratio(u5, plain.u, 5e-4, 1e-10)
+    finals = {"19a": cont_final, "19b": disc_final, "19c": cont_final}
     needed = {"19a": ("fused_rhs", "gj_inverse", "grid_probe"),
               "19b": ("dd_contract", "newton_solve", "gj_inverse",
                       "grid_probe"),
@@ -1583,6 +1695,426 @@ def phase_profiling(dev, counts, record, tmp):
         f"{len(spans)}x; host syncs {syncs}; Timings "
         + "; ".join(f"{k} {v['count']}x {v['total_s']:.3f} s"
                     for k, v in rep.items()))
+
+
+# ---- phases 21-22: the examples and the tutorials ----
+# the kernels every example and tutorial reaches with default parameters:
+# "auto" resolves to the fused RHS and inv_gated (the Gauss-Jordan factor)
+USER_PATH = ("fused_rhs", "gj_inverse", "grid_probe")
+
+
+class StepCount:
+    """Steps of every ``bdf_solve`` inside the ``with`` block: the sum over
+    calls of the most steps a lane took (one device read a call)."""
+
+    def __enter__(self):
+        from kinetica_tpu_torch.ops import bdf
+        self.bdf, self.orig, self.total = bdf, bdf.bdf_solve, 0
+
+        def counted(*a, **k):
+            res = self.orig(*a, **k)
+            self.total += int(res.n_steps.max())
+            return res
+        bdf.bdf_solve = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.bdf.bdf_solve = self.orig
+
+
+def _analysis_reference(_):
+    """The analysis pipeline's run on the CPU (a worker's job): what phase
+    21 holds the card's run to."""
+    import torch
+    from kinetica_tpu_torch.examples import analysis_pipeline
+    torch.set_num_threads(2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = analysis_pipeline.main(device="cpu")
+    return _analysis_summary(out)
+
+
+def _analysis_summary(out):
+    return dict(ranking=[int(r) for r in out.scr.ranking()[:8]],
+                ee=np.asarray(out.scr.ee), survivors=list(out.survivors),
+                ST=np.asarray(out.sob.ST), S1=np.asarray(out.sob.S1),
+                keep=list(out.red.reduction.keep_rids),
+                error=float(out.red.error), refused=out.refused is not None,
+                top4=[int(r) for r, _ in out.flux.top(4)])
+
+
+def _pyrolysis_reference(job):
+    """Member ``b`` of the pyrolysis sweep of ``batch`` ramps by scipy-BDF
+    (a worker's job)."""
+    from kinetica_tpu_torch.examples import pyrolysis_sweep
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.testing.cpu_reference import (
+        scipy_bdf_discrete_baseline)
+    batch, b = job
+    sd, rd, calc, pars, conds = pyrolysis_sweep.problem(batch, device="cpu")
+    cs = conds[b]
+    cs.solve_variable_conditions(pars)
+    return scipy_bdf_discrete_baseline(
+        sd, rd, calc, cs.get_profile("T"), pars.tspan, make_u0(sd, pars),
+        pars.reltol, pars.abstol, cs.get_tstops())
+
+
+def _network_of(res):
+    from kinetica_tpu_torch.core.network import format_rxn
+    sd, rd = res.sd, res.rd
+    return ([sd.toStr[i] for i in range(sd.n)],
+            [format_rxn(sd, rd, i) for i in range(rd.nr)])
+
+
+def _gate_reference(em, sm, conds, pool):
+    """Member 0 of the last gate against scipy-BDF, submitted to ``pool``."""
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    e, pars = em.gate_log[-1], sm.pars
+    return e, pool.submit(_discrete_reference, (
+        e["sd"], e["rd"], sm.calculator, conds[0].get_profile("T"),
+        e["sol"].t, make_u0(e["sd"], pars), pars.reltol, pars.abstol,
+        conds[0].get_tstops()))
+
+
+def _levels(em):
+    return [(t["n_species"], t["n_reactions"]) for t in em.timings]
+
+
+def _level_times(em):
+    return ", ".join(f"L{t['level']} explore_s {t['explore_s']} solve_s "
+                     f"{t['solve_s']}" for t in em.timings)
+
+
+def phase_examples(dev, counts, record, tmp, pool, card, names):
+    """Phase 21: the examples ``names`` (of ``EXAMPLES``) through their
+    ``main`` at the JAX examples' published sizes on the card (see the
+    module docstring), their CPU references in ``pool``."""
+    import torch
+
+    refs = {}
+    if "analysis_pipeline" in names:
+        refs["analysis_pipeline"] = pool.submit(_analysis_reference, None)
+    if "pyrolysis_sweep" in names:
+        refs["pyrolysis_sweep"] = [pool.submit(_pyrolysis_reference, (32, b))
+                                   for b in (0, 31)]
+    totals = {}
+
+    def run(name, fn):
+        """``fn()`` with the counts set to 0 just before it and read just
+        after; the example's own output printed with its name."""
+        counts.reset()
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with StepCount() as steps, contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, syncs = counts.read()
+        for line in buf.getvalue().splitlines():
+            say(f"  {name} | {line}")
+        require_launched(f"21 {name}", launches, USER_PATH)
+        record(f"21 {name}", launches, max(steps.total, 1))
+        totals[name] = wall
+        per_step = {k: round(v / max(steps.total, 1), 4)
+                    for k, v in launches.items()}
+        return out, (f"{wall:.2f} s, {steps.total} steps (bdf_solve calls, "
+                     f"most steps a lane each), launches {launches} "
+                     f"({per_step} a step), host syncs {syncs}")
+
+    for name in names:
+        EXAMPLES[name](run, dev, tmp, pool, refs.get(name), card)
+    say(f"phase 21 examples: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in totals.items()) + f" [{card}]")
+
+
+def _example_getting_started(run, dev, tmp, pool, _ref, card):
+    """Phase 21's getting_started: DirectExplore over the mock CDE, 500 ->
+    1200 K."""
+    from kinetica_tpu_torch.analysis.io import load_output
+    from kinetica_tpu_torch.examples import getting_started
+    from kinetica_tpu_torch.solving.solve_utils import make_u0
+    from kinetica_tpu_torch.testing import example_records as rec
+    from kinetica_tpu_torch.testing.cpu_reference import scipy_bdf_baseline
+    from kinetica_tpu_torch.testing.explore_config import UniformArrhenius
+
+    out, cost = run("getting_started", lambda: getting_started.main(
+        workdir=os.path.join(tmp, "getting_started"), device=dev))
+    res = out.res
+    if _network_of(res) != (rec.GETTING_STARTED["species"],
+                            rec.GETTING_STARTED["reactions"]):
+        fail(f"phase 21 getting_started: network {_network_of(res)}, the "
+             "record pinned from the JAX package's run (held on the CPU by "
+             "tests/test_torch_examples_explore.py) differs")
+    _, ref = scipy_bdf_baseline(
+        res.sd, res.rd, UniformArrhenius(device="cpu"),
+        res.conditions.get_profile("T"), res.pars.tspan,
+        make_u0(res.sd, res.pars), res.pars.reltol, res.pars.abstol,
+        best_of=1)
+    err = final_err(res.sol.u[-1], ref)
+    back = load_output(out.results)
+    if not (res.sol.success and err <= 1e-6
+            and np.array_equal(back.sol.u, res.sol.u)):
+        fail(f"phase 21 getting_started: {res.sol.retcode}, vs scipy-BDF "
+             f"{err:.3e} (> 1e-6?), results.npz loads back "
+             f"{np.array_equal(back.sol.u, res.sol.u)}")
+    say(f"phase 21 getting_started: {res.sd.n} sp / {res.rd.nr} rxn = the "
+        f"record; final state vs scipy-BDF {err:.3e} (<= 1e-6); results.npz "
+        f"loads back bit for bit; {cost} [{card}]")
+
+
+def _example_pyrolysis_sweep(run, dev, tmp, pool, py_refs, card):
+    """Phase 21's pyrolysis_sweep: nc=16, B=32, solved twice (the second
+    timed)."""
+    from kinetica_tpu_torch.examples import pyrolysis_sweep
+
+    out, cost = run("pyrolysis_sweep", lambda: pyrolysis_sweep.main(
+        device=dev))
+    ens = out.ens
+    refs = np.stack([f.result() for f in py_refs])
+    err = mole_err(ens.u[[0, 31], -1], refs)
+    steps = np.asarray(ens.stats["n_steps"])
+    if not (ens.success and out.first.success and err <= 1e-6):
+        fail(f"phase 21 pyrolysis_sweep: success {ens.success}, members 0 "
+             f"and 31 vs scipy-BDF {err:.3e} (> 1e-6?)")
+    say(f"phase 21 pyrolysis_sweep: {out.sd.n} sp / {out.rd.nr} rxn, B=32: "
+        f"both solves all DONE; members 0/31 vs scipy-BDF {err:.3e} (<= "
+        f"1e-6); second solve {out.sweep_s:.3f} s, "
+        f"{out.sweep_s * 1e3 / 32:.2f} ms/profile, steps max/median "
+        f"{int(steps.max())}/{int(np.median(steps))}, "
+        f"{out.sweep_s * 1e3 / steps.max():.3f} ms/step; first solve (kernel "
+        f"build included) {out.first_s:.3f} s; {cost} [{card}]")
+
+
+def _example_analysis_pipeline(run, dev, tmp, pool, ap_ref, card):
+    """Phase 21's analysis_pipeline: nc=6 at 1100 K, against the CPU run."""
+    from kinetica_tpu_torch.examples import analysis_pipeline
+
+    out, cost = run("analysis_pipeline", lambda: analysis_pipeline.main(
+        device=dev))
+    got = _analysis_summary(out)
+    t1 = time.perf_counter()
+    cpu = ap_ref.result()
+    wait_s = time.perf_counter() - t1
+    d_ee = float(np.abs(got["ee"] - cpu["ee"]).max() / np.abs(cpu["ee"]).max())
+    d_st = float(np.abs(got["ST"] - cpu["ST"]).max())
+    d_s1 = float(np.abs(got["S1"] - cpu["S1"]).max())
+    same = all(got[k] == cpu[k] for k in ("ranking", "survivors", "keep",
+                                          "top4"))
+    if not (same and d_ee <= 1e-6 and d_st <= 1e-6 and d_s1 <= 1e-6
+            and got["error"] <= 1e-3 and got["refused"]):
+        fail(f"phase 21 analysis_pipeline: card {got} vs CPU {cpu}; "
+             f"elementary effects {d_ee:.3e} of max|ee|, ST {d_st:.3e}, S1 "
+             f"{d_s1:.3e} (<= 1e-6?)")
+    say(f"phase 21 analysis_pipeline: {out.rd.nr} rxn / {out.sd.n} sp: Morris "
+        f"top 8 {got['ranking']} = the CPU run's, effects within {d_ee:.3e} "
+        f"of max|ee|; Sobol survivors equal, ST within {d_st:.3e}, S1 "
+        f"{d_s1:.3e} (<= 1e-6); DRGEP keeps {len(got['keep'])} of "
+        f"{out.rd.nr} reactions = the CPU run's, validated error "
+        f"{got['error']:.3e} (<= 1e-3); projected flux top 4 {got['top4']} = "
+        f"the CPU run's; trapezoid attribution refused (ValueError); CPU run "
+        f"waited {wait_s:.1f} s after the card's; {cost} [{card}]")
+
+
+def _example_iterative_exploration(run, dev, tmp, pool, _ref, card):
+    """Phase 21's iterative_exploration: 3 ramps, at most 4 levels."""
+    from kinetica_tpu_torch.examples import iterative_exploration
+    from kinetica_tpu_torch.testing import example_records as rec
+
+    out, cost = run("iterative_exploration",
+                    lambda: iterative_exploration.main(
+                        workdir=os.path.join(tmp, "iterative_exploration"),
+                        device=dev))
+    ie_rec = rec.ITERATIVE_EXPLORATION
+    if (_levels(out.em) != ie_rec["levels"]
+            or _network_of(out.res) != (ie_rec["species"],
+                                        ie_rec["reactions"])):
+        fail(f"phase 21 iterative_exploration: levels {_levels(out.em)}, the "
+             f"JAX package's record {ie_rec['levels']} (or the network "
+             "differs)")
+    e, fut = _gate_reference(out.em, out.sm, out.conditions_list, pool)
+    err = mole_err(e["sol"].u[0], fut.result())
+    if err > 1e-6:
+        fail(f"phase 21 iterative_exploration: member 0 of the last gate vs "
+             f"scipy-BDF {err:.3e} (> 1e-6)")
+    say(f"phase 21 iterative_exploration: levels {_levels(out.em)} = the JAX "
+        f"record, network equal; last gate member 0 vs scipy-BDF {err:.3e} "
+        f"(<= 1e-6); {_level_times(out.em)}; {cost} [{card}]")
+
+
+def _example_full_product(run, dev, tmp, pool, _ref, card):
+    """Phase 21's full_product: 16 ramps, 3 levels, sweep, Morris, DRGEP at
+    1e-3."""
+    from kinetica_tpu_torch.examples import full_product
+    from kinetica_tpu_torch.testing import example_records as rec
+
+    def product():
+        got = {}
+        try:
+            full_product.main(workdir=os.path.join(tmp, "full_product"),
+                              device=dev, record=got)
+            got["refused"] = None
+        except ValueError as exc:
+            got["refused"] = str(exc)
+        return got
+
+    got, cost = run("full_product", product)
+    fp_rec = rec.FULL_PRODUCT
+    if (_levels(got["em"]) != fp_rec["levels"]
+            or _network_of(got["res"]) != (fp_rec["species"],
+                                           fp_rec["reactions"])
+            or got["target"] != fp_rec["target"]):
+        fail(f"phase 21 full_product: levels {_levels(got['em'])} (the JAX "
+             f"record {fp_rec['levels']}), target {got['target']!r} "
+             f"({fp_rec['target']!r}), or the network differs")
+    if not (got["ens"].success and np.all(np.isfinite(got["mres"].mu_star))):
+        fail("phase 21 full_product: the sweep or the Morris screen failed")
+    if got["refused"] is not None:
+        # the JAX package raises this at the published settings (its record)
+        if got["refused"] != fp_rec["drgep_refused"]:
+            fail(f"phase 21 full_product: DRGEP raised {got['refused']!r}, "
+                 f"the JAX package {fp_rec['drgep_refused']!r}")
+        drgep = ("DRGEP raised the JAX package's own ValueError at tol 1e-3, "
+                 "ladder and errors equal to its record: "
+                 + got["refused"].split("Ladder: ")[1][:80] + "...")
+    else:
+        red = got["red"]
+        if red.error > 1e-3:
+            fail(f"phase 21 full_product: DRGEP error {red.error:.3e} > 1e-3")
+        drgep = (f"DRGEP {len(red.reduction.keep_rids)} reactions, validated "
+                 f"error {red.error:.3e} (<= 1e-3)")
+    e, fut = _gate_reference(got["em"], got["sm"], got["conditions_list"],
+                             pool)
+    err = mole_err(e["sol"].u[0], fut.result())
+    if err > 1e-6:
+        fail(f"phase 21 full_product: member 0 of the last gate vs scipy-BDF "
+             f"{err:.3e} (> 1e-6)")
+    say(f"phase 21 full_product: levels {_levels(got['em'])} = the JAX "
+        f"record, network and observable {got['target']!r} equal; last gate "
+        f"member 0 vs scipy-BDF {err:.3e} (<= 1e-6); 16-profile sweep all "
+        f"DONE; Morris mu* finite; {drgep}; stages "
+        f"{[round(x, 2) for x in got['stage_s']]} s; {_level_times(got['em'])}"
+        f"; {cost} [{card}]")
+
+
+EXAMPLES = {"getting_started": _example_getting_started,
+            "pyrolysis_sweep": _example_pyrolysis_sweep,
+            "analysis_pipeline": _example_analysis_pipeline,
+            "iterative_exploration": _example_iterative_exploration,
+            "full_product": _example_full_product}
+
+
+def _tutorials_job(tmp):
+    """Phase 22's run in a process of its own (a worker's job, beside phases
+    5-20): every Python block of ``docs/tutorials/*.md`` on the
+    card, the package name the only change, each tutorial in a directory
+    under ``tmp``. Without matplotlib the blocks that need it are left
+    out; any other block that raises raises here with its name. Returns
+    the launches, host syncs, steps, the blocks' seconds and what was not
+    run."""
+    import torch
+    from kinetica_tpu_torch.testing.tutorials import (NAMESPACES, run_tutorial,
+                                                      without_matplotlib)
+    torch.set_num_threads(2)
+    try:
+        import matplotlib  # noqa: F401
+        skip = {}
+    except ImportError:
+        skip = without_matplotlib()
+    counts = Counts()
+    counts.reset()
+    lines, n_run = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StepCount() as steps:
+        for name in sorted(NAMESPACES):
+            wd = os.path.join(tmp, name[:-3])
+            os.makedirs(wd)
+            os.chdir(wd)
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    _, log = run_tutorial(name, skip)
+            except Exception as exc:
+                raise RuntimeError(
+                    f"{name}: {type(exc).__name__}: {exc}") from None
+            n_run += sum(sec is not None for _, sec, _ in log)
+            lines.append(f"{name} " + " ".join(
+                f"[{i}] {'not run' if sec is None else f'{sec:.2f} s'}"
+                for i, sec, _ in log))
+    torch.cuda.synchronize()
+    launches, syncs = counts.read()
+    return dict(launches=launches, syncs=syncs, steps=steps.total,
+                wall=time.perf_counter() - t0, n_run=n_run, lines=lines,
+                n_tutorials=len(NAMESPACES),
+                not_run=[f"{n}[block {i}] ({why})"
+                         for (n, i), why in sorted(skip.items())])
+
+
+def phase_tutorials(job, record, card):
+    """Phase 22: the tutorials' blocks on the card, from ``job``, the future
+    of :func:`_tutorials_job`; any block that raised fails the phase."""
+    try:
+        res = job.result()
+    except Exception as exc:
+        fail(f"phase 22 {exc}")
+    require_launched(22, res["launches"], USER_PATH)
+    record("22", res["launches"], max(res["steps"], 1))
+    not_run = res["not_run"]
+    say(f"phase 22 tutorials: {res['n_run']} blocks of {res['n_tutorials']} "
+        f"tutorials ran on the card in {res['wall']:.1f} s in a process of "
+        f"their own beside phases 5-20; not run: "
+        f"{not_run or 'none'}"
+        + (" (this machine has no matplotlib; "
+           "tests/test_torch_docs_tutorials.py runs them on the CPU)"
+           if not_run else "")
+        + f"; {res['steps']} steps, launches {res['launches']}, host syncs "
+        f"{res['syncs']} | " + " | ".join(res["lines"]) + f" [{card}]")
+
+
+# phase 21's examples in two processes of about equal time on the card
+EXAMPLE_GROUPS = (("pyrolysis_sweep", "getting_started",
+                   "iterative_exploration"),
+                  ("full_product", "analysis_pipeline"))
+
+
+def _phases_job(job):
+    """Phases in a process of their own, beside the main process's phases
+    5-20 (a worker's job): ``("examples", names, ...)`` runs phase 21's
+    ``names``, ``("sensitivities", None, ...)`` phases 11 and 14-16, each
+    with its CPU references in a pool of its own. Their lines and their
+    paths' launches go back to the main process, which prints and records
+    them; a phase that fails prints its message here and raises."""
+    import torch
+    what, names, tmp, card = job
+    lines, recorded, printer = [], [], globals()["say"]
+    globals()["say"] = lines.append
+
+    def record(phase, launches, steps):
+        recorded.append((phase, launches, steps))
+
+    dev = torch.device("cuda:0")
+    counts = Counts()
+    try:
+        if what == "examples":
+            with spawn_pool(2) as refs:
+                phase_examples(dev, counts, record, tmp, refs, card, names)
+        else:
+            with spawn_pool(1) as refs:
+                grad11 = phase_adjoint(dev, counts, record,
+                                       refs.submit(_adjoint_reference, None))
+            t0 = time.perf_counter()
+            phase_sensitivity_static(dev, counts, record, grad11)
+            phase_sensitivity_ramp(dev, counts, record)
+            phase_screening(dev, counts, record, grad11)
+            phase_analysis(dev, counts, record, tmp)
+            say(f"phases 14-16: {time.perf_counter() - t0:.1f} s on this "
+                f"card [{card}]")
+    except SystemExit:
+        for line in lines:      # what ran before the failure
+            print(line, flush=True)
+        raise RuntimeError(f"{what}: failed (the message above)") from None
+    finally:
+        globals()["say"] = printer
+    return dict(lines=lines, recorded=recorded)
 
 
 def main() -> None:
@@ -2110,7 +2642,23 @@ def main() -> None:
         "As181": _equilibrate(A181)[0].contiguous(), "A4": A4,
         "newton": (M4, JB, b4, c), "dd": (dd, r_c),
         "fused": (fused, u_aug, k)})
-    new_phases_s = time.perf_counter() - t0
+    say(f"phase 4g: {time.perf_counter() - t0:.1f} s on this card")
+
+    # the card's other processes, started once the kernels are timed and
+    # run beside phases 5-20 of this one: phase 21's examples in two,
+    # phase 22's tutorials, phases 11 and 14-16
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    side_t0 = time.perf_counter()
+    children = spawn_pool(4)
+    side = {}
+    for sub in ("21-0", "21-1", "22", "16"):
+        os.makedirs(os.path.join(work, sub))
+    for i, names in enumerate(EXAMPLE_GROUPS):
+        side[f"21 {', '.join(names)}"] = children.submit(_phases_job, (
+            "examples", names, os.path.join(work, f"21-{i}"), card))
+    side["22"] = children.submit(_tutorials_job, os.path.join(work, "22"))
+    side["11, 14-16"] = children.submit(_phases_job, (
+        "sensitivities", None, os.path.join(work, "16"), card))
 
     total = dict.fromkeys(KERNELS, 0)
     per_step = {kname: {} for kname in KERNELS}
@@ -2350,32 +2898,10 @@ def main() -> None:
     record("9", launches, st9['n_steps'])
 
     phase_steady_state(dev, counts, record)
-    grad11 = phase_adjoint(dev, counts, record)
     phase_rk45(dev, counts, record)
     phase_float32(dev, counts, record, ens7, pars7, conds7, calc7, sd7, rd7)
 
-    # ---- phases 14-16: forward sensitivities and the analysis layer ----
-    t0 = time.perf_counter()
-    phase_sensitivity_static(dev, counts, record, grad11)
-    phase_sensitivity_ramp(dev, counts, record)
-    phase_screening(dev, counts, record, grad11)
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_analysis(dev, counts, record, tmp)
-    new_phases_s += time.perf_counter() - t0
-    say(f"phases 4g and 14-16: {new_phases_s:.1f} s on this card")
-
-    # ---- phases 17-18: config 5's exploration and the calculators ----
-    t0 = time.perf_counter()
-    with (tempfile.TemporaryDirectory() as tmp,
-          ProcessPoolExecutor(max(1, min(7, (os.cpu_count() or 2) - 1)),
-                              mp_context=multiprocessing.get_context("spawn"))
-          as pool):
-        res17, check17 = phase_explore(dev, counts, record, tmp, pool)
-        phase_calculators(dev, counts, record, tmp, res17.sd, res17.rd)
-        check17()
-    say(f"phases 17-18: {time.perf_counter() - t0:.1f} s on this card")
-
-    # ---- phases 19-20: the sharded ensemble and profiling ----
+    # ---- phases 17-20: exploration, calculators, sharding, profiling ----
     def record_ranks(phase, launches_by_rank, steps):
         """A sharded path's launches, and each rank's launches per step."""
         for kname in KERNELS:
@@ -2383,13 +2909,50 @@ def main() -> None:
             per_step[kname][phase] = [la[kname] / steps
                                       for la in launches_by_rank]
 
-    t0 = time.perf_counter()
-    phase_sharded(dev, record_ranks, ens, ens7, cpu_final)
-    t19 = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_profiling(dev, counts, record, tmp)
-    say(f"phases 19-20: {t19:.1f} + {time.perf_counter() - t0 - t19:.1f} s "
-        "on this card")
+    def collect(name):
+        """A side process's phases: their lines printed, their launches
+        recorded."""
+        try:
+            res = side[name].result()
+        except Exception as exc:
+            fail(f"phases {name} (in a process of their own): "
+                 f"{type(exc).__name__}: {exc}")
+        for line in res["lines"]:
+            say(line)
+        for rec in res["recorded"]:
+            record(*rec)
+
+    # phase 17's scipy references (member 63's stalls) run in a pool beside
+    # phases 18-20, checked at the end; phase 20 comes last (launches cost
+    # more in a process after a torch.profiler session: PERF.md)
+    with spawn_pool(4) as pool:
+        for sub in ("17", "20"):
+            os.makedirs(os.path.join(work, sub))
+        t0 = time.perf_counter()
+        res17, check17 = phase_explore(dev, counts, record,
+                                       os.path.join(work, "17"), pool)
+        phase_calculators(dev, counts, record, os.path.join(work, "17"),
+                          res17.sd, res17.rd)
+        say(f"phases 17-18: {time.perf_counter() - t0:.1f} s on this card "
+            "(phase 17's references checked after phase 20)")
+
+        t0 = time.perf_counter()
+        phase_sharded(dev, record_ranks, ens, ens7)
+        t19 = time.perf_counter() - t0
+        phase_profiling(dev, counts, record, os.path.join(work, "20"))
+        say(f"phases 19-20: {t19:.1f} + {time.perf_counter() - t0 - t19:.1f} "
+            "s on this card")
+        check17()
+
+    for name in side:
+        if name != "22":
+            collect(name)
+    phase_tutorials(side["22"], record, card)
+    say(f"phases 11, 14-16, 21 and 22 in their processes: "
+        f"{time.perf_counter() - side_t0:.1f} s from their start to the last "
+        f"result [{card}]")
+    children.shutdown()
+    shutil.rmtree(work, ignore_errors=True)
 
     for kname in KERNELS:
         kernels[kname]["launches"] = total[kname]
@@ -2402,4 +2965,11 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    # a run stopped from outside stops every process it started
+    signal.signal(signal.SIGTERM, lambda *_: fail("stopped by SIGTERM"))
+    try:
+        main()
+    finally:
+        kill_children()
+    gc.collect()        # the pools' semaphores unregistered while it runs
+    stop_resource_tracker()

@@ -425,3 +425,11 @@ def isstatic(p: AbstractProfile) -> bool:
 
 def isvariable(p: AbstractProfile) -> bool:
     return p.is_variable
+
+
+def isgradientprofile(p: AbstractProfile) -> bool:
+    return p.is_gradient
+
+
+def isdirectprofile(p: AbstractProfile) -> bool:
+    return p.is_direct

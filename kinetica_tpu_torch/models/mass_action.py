@@ -218,3 +218,15 @@ def pad_reactions(net: MassActionNetwork, nr_padded: int) -> MassActionNetwork:
     N = torch.cat([net.N, torch.zeros((pad, ns), dtype=net.N.dtype,
                                       device=net.N.device)])
     return MassActionNetwork(slots, N, delta=net.delta)
+
+
+def fd_jacobian(net: MassActionNetwork, u: torch.Tensor,
+                k: torch.Tensor) -> torch.Tensor:
+    """Autodiff Jacobian d(net.rhs)/du by forward mode (``torch.func.jacfwd``),
+    used in tests to hold the analytic one. ``u`` (ns,) and ``k`` (nr,)
+    give (ns, ns); a batch ``u`` (B, ns), ``k`` (B, nr) gives (B, ns, ns)."""
+    def one(uu, kk):
+        return torch.func.jacfwd(lambda x: net.rhs(x, kk))(uu)
+    if u.ndim == 1:
+        return one(u, k)
+    return torch.func.vmap(one)(u, k)

@@ -67,6 +67,14 @@ _TINY32 = torch.finfo(F32).tiny
 _MAX32 = torch.finfo(F32).max
 
 
+def time_dtype(state_dtype) -> torch.dtype:
+    """The dtype :func:`bdf_solve` carries time quantities (t, h, stops) in:
+    f64 for every state dtype. An f32 time would cap the resolvable step
+    ratio at h / t ~ 1e-7. A caller that carries ``BDFResults.h`` across
+    chunkwise segments starts its carry in this dtype."""
+    return F64
+
+
 class BDFResults(NamedTuple):
     ys: torch.Tensor          # (B, n_save, ns), or (B, chunks, n_save, ns)
     status: torch.Tensor
@@ -140,10 +148,12 @@ def _bdf_constants(dtype, device):
 
 
 def select_initial_step(rhs, pre, t0, y0, f0, tf, rtol, atol):
-    """Hairer-style automatic initial step size, per lane (f64)."""
+    """Hairer-style automatic initial step size, per lane (in
+    :func:`time_dtype`)."""
+    tdt = time_dtype(y0.dtype)
     scale = atol[:, None] + y0.abs() * rtol[:, None]
-    d0 = _rms_norm_f64(y0 / scale).to(F64)
-    d1 = _rms_norm_f64(f0 / scale).to(F64)
+    d0 = _rms_norm_f64(y0 / scale).to(tdt)
+    d1 = _rms_norm_f64(f0 / scale).to(tdt)
     span = abs(tf - float(t0[0]))
     h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5),
                      torch.full_like(d0, 1e-6), 0.01 * d0 / d1)
@@ -151,7 +161,7 @@ def select_initial_step(rhs, pre, t0, y0, f0, tf, rtol, atol):
     h0 = torch.clamp(h0, min=torch.finfo(y0.dtype).tiny * 1e3)
     y1 = y0 + h0.to(y0.dtype)[:, None] * f0
     f1 = rhs(t0 + h0, y1, pre)
-    d2 = _rms_norm_f64((f1 - f0) / scale).to(F64) / h0
+    d2 = _rms_norm_f64((f1 - f0) / scale).to(tdt) / h0
     dm = torch.maximum(d1, d2)
     h1 = torch.where(dm <= 1e-15, torch.clamp(h0 * 1e-3, min=1e-6),
                      (0.01 / dm) ** 0.5)
@@ -249,14 +259,15 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         raise ValueError("chunks= mode requires prepare and chunk_offsets")
 
     lanes = torch.arange(B, device=dev)
-    f64 = dict(dtype=F64, device=dev)
+    tdt = time_dtype(dtype)
+    f64 = dict(dtype=tdt, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     t0, tf = float(t0), float(tf)
     rtol = torch.as_tensor(rtol, dtype=dtype, device=dev).expand(B).clone()
     atol = torch.as_tensor(atol, dtype=dtype, device=dev).expand(B).clone()
     saveat = torch.as_tensor(saveat, **f64).reshape(-1)
     n_save = saveat.shape[0]
-    eps = torch.finfo(F64).eps
+    eps = torch.finfo(tdt).eps
     tspan_scale = max(abs(tf), 1.0)
     tol_t = 4 * eps * tspan_scale
 
@@ -301,7 +312,7 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         def prep(t_stage, t_start, nc):
             return prepare(t_stage, t_start, args)
 
-    _, gamma, alpha, error_const = _bdf_constants(F64, dev)
+    _, gamma, alpha, error_const = _bdf_constants(tdt, dev)
     error_const32 = error_const.to(F32)
     newton_tol = torch.maximum(
         10 * torch.finfo(dtype).eps / rtol,
@@ -428,7 +439,7 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         global jac_refreshes
         t, h_pre, order = s.t, s.h, s.order
         # --- clamp h so no step straddles tf or the next stop ---
-        h_min = t.abs() * eps * 10 + torch.finfo(F64).tiny * 1e4
+        h_min = t.abs() * eps * 10 + torch.finfo(tdt).tiny * 1e4
         sp = torch.clamp(s.stop_ptr, max=n_stops - 1)
         next_stop = torch.where(s.stop_ptr < n_stops, stops[lanes, sp], inf)
         t_bound = torch.clamp(next_stop, max=tf)
@@ -567,8 +578,8 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         nfail = ~converged & ~refresh
         order_next = torch.where(accept, new_order, order)
         factor = torch.where(
-            accept, factor_acc.to(F64),
-            torch.where(reject, factor_rej.to(F64),
+            accept, factor_acc.to(tdt),
+            torch.where(reject, factor_rej.to(tdt),
                         torch.where(nfail, torch.full_like(h, 0.5),
                                     torch.ones_like(h))))
         rescale = torch.where(accept, rescale_acc, reject | nfail)

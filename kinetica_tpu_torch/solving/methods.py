@@ -435,7 +435,7 @@ def _run_chunkwise(rhs, jac, u0, pars: ODESimulationParams,
     def solve_fn(abstol, reltol):
         u = u0
         worst = bdf.DONE
-        h = torch.full((1,), float("nan"), dtype=torch.float64,
+        h = torch.full((1,), float("nan"), dtype=bdf.time_dtype(u0.dtype),
                        device=u0.device)
         warm = None
         acc = dict.fromkeys(STAT_KEYS, 0)

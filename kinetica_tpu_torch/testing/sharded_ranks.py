@@ -24,6 +24,7 @@ A case is a plain dict (it crosses the process boundary by pickle)::
 """
 from __future__ import annotations
 
+import ctypes
 import datetime
 import importlib
 import logging
@@ -31,6 +32,8 @@ import multiprocessing
 import os
 import queue
 import shutil
+import signal
+import sys
 import tempfile
 import time
 import traceback
@@ -217,8 +220,17 @@ def run_cases(spec: dict) -> dict:
     return out
 
 
+def die_with_parent() -> None:
+    """Have the kernel kill this process when the one that started it dies
+    (``PR_SET_PDEATHSIG``; Linux only, a no-op elsewhere), so that a spawned
+    rank or pool worker never outlives a parent that was killed."""
+    if sys.platform.startswith("linux"):
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+
+
 def _rank_main(rank, world, store, timeout_s, spec, results):
     """A spawned rank: join the process group, run the cases, report."""
+    die_with_parent()
     try:
         torch.set_num_threads(1)
         logging.getLogger("kinetica_tpu_torch").setLevel(logging.WARNING)

@@ -174,6 +174,15 @@ def test_port_never_imports_jax():
             "kinetica_tpu_torch.testing.fake_ase, "
             "kinetica_tpu_torch.testing.explore_config, "
             "kinetica_tpu_torch.testing.tst_bounds\n"
+            "import kinetica_tpu_torch.examples, "
+            "kinetica_tpu_torch.examples.mock_cde, "
+            "kinetica_tpu_torch.examples.getting_started, "
+            "kinetica_tpu_torch.examples.pyrolysis_sweep, "
+            "kinetica_tpu_torch.examples.analysis_pipeline, "
+            "kinetica_tpu_torch.examples.iterative_exploration, "
+            "kinetica_tpu_torch.examples.full_product, "
+            "kinetica_tpu_torch.testing.tutorials, "
+            "kinetica_tpu_torch.testing.example_records\n"
             "from kinetica_tpu_torch.testing import fake_ase\n"
             "fake_ase.install(); fake_ase.uninstall()\n"
             "kinetica_tpu_torch.solve_network, "
