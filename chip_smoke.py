@@ -113,6 +113,20 @@ The user programs:
   change; the blocks that need matplotlib are named as not run where it
   is not installed.
 
+The measurement programs (``kinetica_tpu_torch.scripts``), once every
+other phase and process has ended, so each runs alone on the card, one
+after another in a worker process, each through its ``main``:
+
+* phase 23a: ``bench --repeats 3`` at its defaults (nc=24, B=64): its one
+  JSON line, member 0 within 1e-6 of scipy-BDF, the card's name and power
+  limit beside the times;
+* phase 23b: ``bench_longhorizon``, the 1e5 s horizon, cut (time budget)
+  from B=64 to 8 and to its first 2e4 s, 8 of its 40 chunks of 2.5e3 s:
+  member 0 within 1e-6 of the chunked scipy-BDF, the carbon drift within
+  1e-6;
+* phase 23c: ``step_count_audit`` at its three lanes (40, 50, 60 K/s),
+  the card's accepted steps beside scipy-BDF's.
+
 Once the kernels are timed (phases 2-4g), three processes of their own
 share the card with the main one: phase 21's examples in two, phase 22
 in a third and phases 11 and 14-16 in a fourth; they run beside phases
@@ -2117,6 +2131,127 @@ def _phases_job(job):
     return dict(lines=lines, recorded=recorded)
 
 
+# phase 23: the port's measurement programs, each through its ``main`` as
+# ``python -m kinetica_tpu_torch.scripts.<name>`` runs it, with its
+# environment: (label, module, argv, env)
+PROGRAMS = (
+    ("23a", "bench", ["--repeats", "3"], {}),
+    # the 1e5 s horizon cut to B = 8 of its 64 ramps and to its first 8
+    # chunks of 2.5e3 s (time budget)
+    ("23b", "bench_longhorizon", [], {"KINETICA_BENCH_BATCH": "8",
+                                      "KINETICA_BENCH_TF": "2e4",
+                                      "KINETICA_BENCH_CHUNKS": "8"}),
+    ("23c", "step_count_audit", [], {}),
+)
+
+
+def _program_job(job):
+    """One measurement program in this worker process, alone on the card:
+    its launches (counts set to 0 just before ``main``, read just after),
+    standard output, result and wall time."""
+    import importlib
+
+    import torch
+    label, name, argv, env = job
+    mod = importlib.import_module(f"kinetica_tpu_torch.scripts.{name}")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    counts, out = Counts(), io.StringIO()
+    try:
+        counts.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, syncs = counts.read()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return dict(result=result, stdout=out.getvalue(), launches=launches,
+                syncs=syncs, wall=wall)
+
+
+def phase_programs(record, card, crn):
+    """Phase 23: the bench (23a), the 1e5 s horizon cut (23b) and
+    the step-count audit at its three lanes (23c), one after another in a
+    worker process that dies with this one, once every other phase has
+    ended: each program on the card alone. A program whose own gate fails
+    raises there and fails the phase."""
+    res = {}
+    with spawn_pool(1) as pool:
+        futures = {label: pool.submit(_program_job, (label, name, argv, env))
+                   for label, name, argv, env in PROGRAMS}
+        for label, name, _, _ in PROGRAMS:
+            try:
+                res[label] = futures[label].result()
+            except Exception as exc:
+                fail(f"phase {label} ({name}): {type(exc).__name__}: {exc}")
+
+    r = res["23a"]
+    rec, ex = r["result"], r["result"]["extra"]
+    lines = [ln for ln in r["stdout"].splitlines() if ln.strip()]
+    if [json.loads(ln) for ln in lines] != [rec]:
+        fail(f"phase 23a: the bench printed {lines}, not one JSON line")
+    if not (ex["max_molefrac_err"] <= 1e-6 and ex["platform"] == "gpu"
+            and ex["device"] == card and ex["batch"] == BATCH
+            and ex["crn"] == crn):
+        fail(f"phase 23a: {ex}")
+    require_launched("23a", r["launches"], USER_PATH)
+    sweeps = 1 + ex["repeats"]
+    record("23a", r["launches"], ex["steps_max"] * sweeps)
+    say(f"phase 23a bench (python -m kinetica_tpu_torch.scripts.bench "
+        f"--repeats {ex['repeats']}): {ex['crn']}, B={ex['batch']}: "
+        f"{ex['per_profile_ms']:.2f} ms/profile median (min "
+        f"{ex['per_profile_ms_min']:.2f}, max {ex['per_profile_ms_max']:.2f}; "
+        f"sweeps {', '.join(f'{t:.3f}' for t in ex['sweep_s'])} s), "
+        f"{ex['ms_per_step']:.3f} ms/step, steps max/median "
+        f"{ex['steps_max']}/{ex['steps_median']}, compile_s "
+        f"{ex['compile_s']:.2f}, scipy-BDF one profile "
+        f"{ex['cpu_baseline_s']:.3f} s ({rec['value']:.3f}x), member 0 vs "
+        f"scipy-BDF {ex['max_molefrac_err']:.3e}; {r['wall']:.1f} s in all; "
+        f"launches {r['launches']}, host syncs {r['syncs']} over "
+        f"{sweeps} sweeps [{ex['device']}]")
+    say("phase 23a JSON: " + lines[0])
+
+    r = res["23b"]
+    out = r["result"]
+    if not (out["max_molefrac_err"] <= 1e-6 and out["batch"] == 8
+            and out["tf"] == 2e4 and out["carbon_drift"] <= 1e-6):
+        fail(f"phase 23b: {out}")
+    require_launched("23b", r["launches"], USER_PATH)
+    record("23b", r["launches"], 2 * out["steps_max"])
+    say(f"phase 23b the 1e5 s horizon (bench_longhorizon) cut to B=8 and its "
+        f"first {out['tf']:.0f} s ({out['n_chunks']} chunks): "
+        f"{out['per_profile_ms']:.1f} ms/profile ({out['sweep_s']:.3f} s "
+        f"sweep, first call {out['warm_s']:.1f} s), steps max/median/min "
+        f"{out['steps_max']}/{out['steps_median']}/{out['steps_min']}, "
+        f"corr(steps, ramp rate) {out['corr_steps_rate']:+.3f}, carbon drift "
+        f"{out['carbon_drift']:.2e}, chunked scipy-BDF "
+        f"{out['cpu_baseline_s']:.2f} s, member 0 vs it "
+        f"{out['max_molefrac_err']:.3e}; {r['wall']:.1f} s in all; launches "
+        f"{r['launches']}, host syncs {r['syncs']} [{card}] | "
+        + " | ".join(r["stdout"].strip().splitlines()))
+
+    r = res["23c"]
+    rows = r["result"]
+    if [row["rate"] for row in rows] != [40.0, 50.0, 60.0] or not all(
+            row["ours"] > 0 and row["scipy"] > 0 for row in rows):
+        fail(f"phase 23c: {rows}")
+    require_launched("23c", r["launches"], USER_PATH)
+    record("23c", r["launches"],
+           sum(row["ours"] + row["rejected"] for row in rows))
+    say(f"phase 23c step-count audit (step_count_audit on the card): "
+        + "; ".join(f"{row['rate']:.0f} K/s ours {row['ours']} (+"
+                    f"{row['rejected']} rejected), scipy-BDF {row['scipy']}, "
+                    f"ratio {row['ratio']:.3f}" for row in rows)
+        + f"; {r['wall']:.1f} s in all; launches {r['launches']}, host syncs "
+        f"{r['syncs']} [{card}]")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2953,6 +3088,11 @@ def main() -> None:
         f"result [{card}]")
     children.shutdown()
     shutil.rmtree(work, ignore_errors=True)
+
+    # ---- phase 23: the measurement programs, alone on the card ----
+    t0 = time.perf_counter()
+    phase_programs(record, card, f"{rd.nr}rxn/{sd.n}sp")
+    say(f"phase 23: {time.perf_counter() - t0:.1f} s on this card")
 
     for kname in KERNELS:
         kernels[kname]["launches"] = total[kname]

@@ -128,6 +128,10 @@ class MassActionNetwork(nn.Module):
         """Analytic Jacobian d(du/dt)/du, (..., ns, ns), in N's dtype (f64)."""
         return self._jac_onehot(u, k)
 
+    def rhs_and_jac(self, u: torch.Tensor, k: torch.Tensor):
+        """``(rhs(u, k), jac(u, k))``, as the reference's."""
+        return self.rhs(u, k), self.jac(u, k)
+
     def jac_matmul(self, u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         """The same Jacobian; the main path calls it on an f32 network
         (the Newton preconditioner), as the reference's ``jac_matmul``."""

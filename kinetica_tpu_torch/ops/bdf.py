@@ -43,8 +43,8 @@ import torch
 
 from ..precision import assert_precision_policy
 from . import host_sync
-from .linalg import (NewtonFactors, newton_factor, newton_solve,
-                     resolve_linsolve)
+from .linalg import (NewtonFactors, lu_precision_dtype, newton_factor,
+                     newton_solve, resolve_linsolve)
 
 MAX_ORDER = 5
 NEWTON_MAXITER = 4
@@ -90,6 +90,9 @@ class BDFResults(NamedTuple):
     n_lu: torch.Tensor
     D: torch.Tensor
     n_equal_steps: torch.Tensor
+    # the reference's in-carry attempt log: not recorded, None as in the
+    # reference's default
+    trace: torch.Tensor | None = None
 
 
 def _rms_norm(x: torch.Tensor) -> torch.Tensor:
@@ -185,14 +188,18 @@ class _State:
 
 def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
               tf: float, saveat, rtol=1e-8, atol=1e-10, stops=None,
-              max_steps: int = 100000, nonnegative: bool = False,
-              nonnegative_project: bool = False, linsolve: str = "inv_gated",
-              jac_policy: str = "lazy", lu_drift_tol: float = 0.1,
-              prepare: Callable | None = None, args=None,
-              chunks: int | None = None, chunk_offsets=None,
-              first_step=None, warm_start=None,
+              max_steps: int = 100000, first_step=None,
+              nonnegative: bool = False, nonnegative_project: bool = False,
+              lu_precision: str = "mixed", refine: int = 1,
+              linsolve: str = "auto", jac_policy: str = "lazy",
+              lu_drift_tol: float = 0.1, prepare: Callable | None = None,
+              warm_start=None, args=None, chunks: int | None = None,
+              chunk_offsets=None,
               on_chunk: Callable | None = None) -> BDFResults:
     """Integrate ``dy/dt = rhs(t, y, pre)`` for a batch of lanes with BDF(1-5).
+
+    The parameters are the reference's, in its order; ``on_chunk`` is the
+    port's own.
 
     Args:
       rhs: ``(t (B,), y (B, ns), pre) -> (B, ns)``.
@@ -211,9 +218,19 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         attempt (the rate constants of the step); ``a`` is ``args``, or
         ``(chunk_offsets[nc], args)`` in chunk mode. Without it ``pre``
         is ``args``.
-      linsolve: the Newton linear solve, "auto" ("inv_gated" up to 512
-        species, "lu" above), "inv", "inv_gated", "inv_fused" or "lu"
-        (:mod:`.linalg`).
+      lu_precision: "mixed" (the default: the f32 inverse of the inverse
+        methods; "lu" is an f64 LU either way, as the reference's CPU
+        promotes "mixed") or "full", which needs ``linsolve="lu"`` and
+        raises ``ValueError`` otherwise (the inverses are f32 only).
+      refine: the mandatory refinement sweeps of a Newton solve, passed to
+        :func:`~kinetica_tpu_torch.ops.linalg.newton_solve`: "inv" and
+        "inv_gated" run a fixed two sweeps whatever its value (the
+        reference's accelerator schedule), "inv_fused" one mandatory sweep
+        and adaptive ones, up to four in all, in its kernel, and the f64
+        "lu" factor none.
+      linsolve: the Newton linear solve, "auto" (the default: "inv_gated"
+        up to 512 species, "lu" above), "inv", "inv_gated", "inv_fused"
+        or "lu" (:mod:`.linalg`).
       jac_policy: "lazy" (J refreshed after a Newton failure on a stale J,
         the factor rebuilt when c drifts) or "always" (J and the factor
         rebuilt at every step attempt).
@@ -243,6 +260,7 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
     dev, dtype = y0.device, y0.dtype
     B, ns = y0.shape
     linsolve = resolve_linsolve(linsolve, ns)
+    lu_dtype = lu_precision_dtype(lu_precision, linsolve, dtype)
     if linsolve == "inv_fused" and dtype != F64:
         raise ValueError(f"linsolve='inv_fused' needs an f64 state (its "
                          f"kernel carries b and dy in f64), got {dtype}; "
@@ -354,7 +372,7 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
                            neq0)
     J0 = jac(t_init, y0, pre0)
     c0 = h_init / alpha[order0]
-    fact0 = newton_factor(J0, c0.to(dtype), method=linsolve)
+    fact0 = newton_factor(J0, c0.to(dtype), lu_dtype, method=linsolve)
     save_ptr0 = int(torch.searchsorted(saveat, torch.tensor([t0], **f64),
                                        right=True)[0])
     zi = torch.zeros(B, **i64)
@@ -385,7 +403,8 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
             if it >= 2 and not host_sync.any_true(active):
                 break
             f = rhs(t_new, y, pre)
-            dy = newton_solve(fact, c[:, None] * f - psi - d, method=linsolve)
+            dy = newton_solve(fact, c[:, None] * f - psi - d, refine=refine,
+                              method=linsolve)
             dy_norm = _scaled_norm(dy, scale)
             small = dy_norm < 0.03 * newton_tol
             if it > 0:
@@ -467,7 +486,7 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         if jac_policy == "always":
             # J and the factor fresh at every attempt: no stale-J retry
             J = jac(t_new, y_pred, pre)
-            fnew = newton_factor(J, c_state, method=linsolve)
+            fnew = newton_factor(J, c_state, lu_dtype, method=linsolve)
             n_lu, n_jev = s.n_lu + 1, s.n_jev + 1
             converged, n_it, y_new, d = newton_iterate(
                 run, t_new, pre, y_pred, c_state, psi, scale_pred,
@@ -479,8 +498,8 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
             # --- factor cache: refactor the lanes whose c drifted ---
             need_lu = run & ((c - s.c_lu).abs() > lu_drift_tol * c.abs())
             prev = NewtonFactors(lu=s.lu, piv=s.piv, J=s.J, c=c_state)
-            fnew = newton_factor(s.J, c_state, method=linsolve, need=need_lu,
-                                 prev=prev)
+            fnew = newton_factor(s.J, c_state, lu_dtype, method=linsolve,
+                                 need=need_lu, prev=prev)
             n_lu = s.n_lu + need_lu.long()
             fact = NewtonFactors(lu=fnew.lu, piv=fnew.piv, J=s.J, c=c_state)
             converged, n_it, y_new, d = newton_iterate(

@@ -192,10 +192,36 @@ def _inv_factor_primal(A: torch.Tensor, inverse) -> torch.Tensor:
     return dc[:, :, None] * minv * dr[:, None, :]
 
 
-def newton_factor(J: torch.Tensor, c: torch.Tensor, method: str = "inv_gated",
+def lu_precision_dtype(lu_precision: str, method: str,
+                       dtype: torch.dtype) -> torch.dtype:
+    """The factor dtype of ``bdf_solve(lu_precision=...)`` for a resolved
+    ``method`` and the state ``dtype``: "mixed" is f32, "full" the state
+    dtype and only with "lu" (the inverses are f32 only)."""
+    if lu_precision == "mixed":
+        return torch.float32
+    if lu_precision != "full":
+        raise ValueError(f"lu_precision must be 'mixed' or 'full', got "
+                         f"{lu_precision!r}")
+    if method != "lu":
+        raise ValueError(f"lu_precision='full' needs linsolve='lu': the "
+                         f"{method!r} factor is an f32 inverse")
+    return dtype
+
+
+def newton_factor(J: torch.Tensor, c: torch.Tensor,
+                  lu_dtype: torch.dtype = torch.float32,
+                  method: str = "inv_gated",
                   need: torch.Tensor | None = None,
                   prev: NewtonFactors | None = None) -> NewtonFactors:
     """Factor A = I - c J for a batch of lanes.
+
+    The parameters are the reference's, in its order; ``prev`` is the
+    port's own. ``lu_dtype`` is the factor's precision: the inverse
+    methods build an f32 inverse and raise for any other dtype; "lu"
+    takes f32 or f64 and builds an f64 LU either way (the reference's CPU
+    promotes its mixed-precision LU to the full one). The default
+    ``method`` is "inv_gated", where the reference's is "lu": the port's
+    accelerator choice.
 
     ``method`` "inv_gated" (the main path), "inv" or "inv_fused": the
     equilibrated f32 explicit inverse with its scales folded in. With
@@ -210,7 +236,13 @@ def newton_factor(J: torch.Tensor, c: torch.Tensor, method: str = "inv_gated",
     (``torch.linalg``), an explicit cross-check option only.
     """
     B, n, _ = J.shape
+    if lu_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"lu_dtype must be torch.float32 or torch.float64, "
+                         f"got {lu_dtype!r}")
     if method in INV_METHODS:
+        if lu_dtype != torch.float32:
+            raise ValueError(f"linsolve {method!r} builds an f32 inverse; "
+                             f"an {lu_dtype} factor needs method='lu'")
         if need is None:
             lu = _inv_factor(_newton_matrix(J, c))
         else:
@@ -237,15 +269,24 @@ def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (M @ v.unsqueeze(-1)).squeeze(-1)
 
 
-def newton_solve(f: NewtonFactors, b: torch.Tensor,
-                 method: str = "inv_gated") -> torch.Tensor:
+def newton_solve(f: NewtonFactors, b: torch.Tensor, refine: int = 1,
+                 method: str = "inv_gated",
+                 max_refine: int = MAX_REFINE) -> torch.Tensor:
     """Solve (I - c J) dy = b for (B, n) right-hand sides in the state dtype.
+
+    The parameters are the reference's, in its order (its default
+    ``method`` is "lu"; "inv_gated" is the port's accelerator choice).
 
     "inv_gated" and "inv": dy = M b through the f32 inverse, then exactly
     two refinement sweeps r = b - (dy - c J dy) (the J matvec in J's
-    dtype, the residual in b's dtype), dy += M r. "inv_fused": the same
-    with one mandatory and up to ``MAX_REFINE`` adaptive sweeps, in one
-    kernel launch (f32 J). "lu": one f64 LU solve.
+    dtype, the residual in b's dtype), dy += M r, whatever ``refine`` and
+    ``max_refine`` are: the reference's accelerator schedule
+    (``KINETICA_REFINE`` "auto" is "unroll:2" there, which reads neither).
+    "inv_fused": one mandatory sweep and then adaptive ones, up to
+    ``max_refine`` sweeps in all, in one kernel launch (f32 J); ``refine``
+    is not read, as in the reference's kernel call. "lu": one f64 LU
+    solve, exact to f64, so no sweep runs (the reference's full-precision
+    LU returns there too).
     """
     dtype = b.dtype
     if method == "lu":
@@ -256,7 +297,7 @@ def newton_solve(f: NewtonFactors, b: torch.Tensor,
         return fused_newton_solve(f.lu.contiguous(),
                                   f.J.to(torch.float32).contiguous(),
                                   b.contiguous(), f.c.to(dtype).contiguous(),
-                                  n_sweeps=MAX_REFINE)
+                                  n_sweeps=max_refine)
     if method not in ("inv", "inv_gated"):
         raise ValueError(f"unknown linsolve {method!r}")
 

@@ -57,8 +57,8 @@ class RK45Results(NamedTuple):
     n_steps: torch.Tensor
     n_accepted: torch.Tensor
     n_rejected: torch.Tensor
-    n_fev: torch.Tensor
     h: torch.Tensor
+    n_fev: torch.Tensor       # the port's own, after the reference's fields
 
 
 def _rms(x: torch.Tensor) -> torch.Tensor:

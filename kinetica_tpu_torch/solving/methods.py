@@ -49,7 +49,7 @@ from ..ops import bdf, rk45
 from ..ops.dd_contract import DDContraction
 from ..ops.fused_rhs import FusedMassActionRHS
 from ..ops.interp import left_constant_lookup
-from ..ops.linalg import resolve_linsolve
+from ..ops.linalg import lu_precision_dtype, resolve_linsolve
 from ..utils.interpolation import TimeSeries
 from ..utils.logging import logger
 from ..utils.profiling import timed
@@ -193,13 +193,8 @@ def _check_lu_precision(pars, ns: int) -> None:
     factor does, the f32 inverse for the inverse methods and the f64 LU
     for "lu" (the reference's CPU promotes "mixed" to that); "full" asks
     for a factor in the state dtype, which only "lu" gives."""
-    if pars.lu_precision not in ("mixed", "full"):
-        raise ValueError(f"lu_precision must be 'mixed' or 'full', got "
-                         f"{pars.lu_precision!r}")
-    linsolve = resolve_linsolve(pars.linsolve, ns)
-    if pars.lu_precision == "full" and linsolve != "lu":
-        raise ValueError(f"lu_precision='full' needs linsolve='lu': the "
-                         f"factor of {linsolve!r} is an f32 inverse")
+    lu_precision_dtype(pars.lu_precision, resolve_linsolve(pars.linsolve, ns),
+                       torch.float64)
 
 
 def _make_rhs_jac(net: MassActionNetwork, mode: str, k_fn=None, jac_net=None,

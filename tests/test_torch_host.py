@@ -183,6 +183,11 @@ def test_port_never_imports_jax():
             "kinetica_tpu_torch.examples.full_product, "
             "kinetica_tpu_torch.testing.tutorials, "
             "kinetica_tpu_torch.testing.example_records\n"
+            "import kinetica_tpu_torch.scripts.bench, "
+            "kinetica_tpu_torch.scripts.bench_bsweep, "
+            "kinetica_tpu_torch.scripts.bench_longhorizon, "
+            "kinetica_tpu_torch.scripts.bench_explore, "
+            "kinetica_tpu_torch.scripts.step_count_audit\n"
             "from kinetica_tpu_torch.testing import fake_ase\n"
             "fake_ase.install(); fake_ase.uninstall()\n"
             "kinetica_tpu_torch.solve_network, "
