@@ -5,8 +5,13 @@
 // the pivot is the first row i >= k holding the column's largest |a_ik|
 // (a NaN among them keeps row k); a pivot with |p| < 1e-30 is clamped to
 // +-1e-30 (0 -> +1e-30) so that a singular member comes out huge but
-// finite; rows k and m exchange, the pivot row is multiplied by 1/p, and
-// every other row subtracts its column-k multiple of the pivot row.
+// finite; the pivot row is multiplied by 1/p; row m takes old row k by
+// arithmetic, x_m + (x_k - x_m), as the reference's does (an exact copy
+// differs where x_k - x_m rounds: on a matrix that is singular in f32 a
+// later pivot then cancels to exactly 0 and the inverse reaches the
+// clamp); and every row subtracts its column-k multiple of the pivot row
+// by one fused multiply-add, rounded once, as XLA's CPU backend runs the
+// reference's update.
 //
 // What bounds it on an H100: the n sequential column steps. The arithmetic
 // (2 n^3 flops, 7.8e5 at n = 73) and the traffic (2 n^2 floats per matrix)
@@ -30,17 +35,23 @@
 //   from it (a warp-shuffle argmax, no third barrier); the owners of rows
 //   m and k publish them as they are, and every thread scales its four
 //   entries of row m by 1 / p (the division stays off the owners' path);
-//   every thread updates its registers with selects, a product and a
-//   difference an entry, without branches. The product and the difference
-//   are rounded apart (no fused multiply-add), as in the plain version's
-//   two tensor operations, so the kernel equals gj_inverse_plain bit for
-//   bit (the elimination, the pivot order and the row exchange are the
-//   same; the in-place column holds the values of the [A | I] right half).
+//   the owners of row m add x_k - x_m to it (the exchange by arithmetic,
+//   read from the published row k), and every thread updates its
+//   registers with selects and one fused multiply-add an entry. The plain
+//   version rounds each of these once too (its multiply-add in f64,
+//   rounded to odd where rounding on to f32 could differ), so the kernel
+//   equals gj_inverse_plain bit for bit (the same in-place elimination,
+//   pivot order and write-out). The in-place form
+//   holds the values of the reference's [A | I]: the exchange's arithmetic
+//   is exact on the identity half's 0 and 1 entries that it leaves out.
 // - Which thread owns row m, row k or column k is a predicate on each
-//   register, never a branch that picks a register: such a branch on a
-//   data-dependent tile index made nvcc index the tile at run time and
-//   move it to local memory (128 bytes of stack a thread; 82 registers and
-//   no stack as written).
+//   register (row m's exchange: a branch per unrolled register row, on
+//   that predicate), never a branch that picks a register: such a branch
+//   on a data-dependent tile index made nvcc index the tile at run time
+//   and move it to local memory (128 bytes of stack a thread). Row m's
+//   exchange as a select on every entry, with row k held in four more
+//   registers, made nvcc spill; as written, 79 registers and no stack
+//   (CUDA 12.8, sm_90a).
 // - Shared memory is the published vectors, 3 KB, static: no launch
 //   attribute.
 // The TPU kernel eliminated every batch member in lockstep with one-hot
@@ -155,25 +166,29 @@ gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
     __syncthreads();
 
     // 4. update: row k becomes the scaled pivot row (column k: 1 / p), row
-    //    m the old row k minus its multiple (old a_kk) of it, every other
-    //    row r minus a_rk times it
-    float pr[kCols], rk[kCols];
+    //    m becomes x_m + (x_k - x_m) (the exchange by arithmetic) minus
+    //    its multiple (old a_kk) of it, every other row r minus a_rk times
+    //    it, by one fused multiply-add. Row m is register row i of one
+    //    warp: its branch is warp-uniform and indexes no register
+    float pr[kCols];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
+    for (int j = 0; j < kCols; ++j)
       pr[j] = lane + 32 * j == k ? inv : __fmul_rn(rowp_s[lane + 32 * j], inv);
-      rk[j] = rowk_s[lane + 32 * j];
-    }
     const float fk = col[k];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = warp + kWarps * i;
       const bool is_m = r == m, is_k = r == k;
+      if (is_m) {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          x[i][j] = __fadd_rn(x[i][j],
+                              __fsub_rn(rowk_s[lane + 32 * j], x[i][j]));
+      }
       const float f = is_m ? fk : col[r];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float nv = __fsub_rn(is_m ? rk[j] : x[i][j], __fmul_rn(f, pr[j]));
-        x[i][j] = is_k ? pr[j] : nv;
-      }
+      for (int j = 0; j < kCols; ++j)
+        x[i][j] = is_k ? pr[j] : __fmaf_rn(-f, pr[j], x[i][j]);
     }
   }
   __syncthreads();

@@ -7,12 +7,26 @@ of column k is the first row i >= k that holds the column's largest
 |a_ik|; a pivot with |p| < 1e-30 is clamped to +-1e-30 (0 -> +1e-30), so a
 singular member comes out finite instead of NaN.
 
+The elimination is the reference's, rounding for rounding, as its CPU
+run computes it: the pivot row is scaled by ``1 / p``; row m takes old
+row k by arithmetic, ``row_m + (row_k - row_m)``, two f32 operations; and
+every row's update ``base - f * row_p`` is rounded once (a fused
+multiply-add). An exact copy in the exchange, or a product and a
+difference rounded apart, is a different function exactly where it
+matters: on a Newton matrix that is singular in f32 a later pivot then
+cancels to exactly 0, the clamp turns the inverse into ~1e30 and Newton
+fails. XLA's CPU runtime flushes subnormal operands and results to zero
+and the port does not, so where a subnormal arises mid-elimination the
+two can part in entries far below max|M|; run with ``torch.set_flush_denormal``
+the port's result equals the reference's bit for bit on the near-singular
+Newton matrices of ``testing.kernel_cases.near_singular_newton``.
+
 On a CUDA tensor :func:`gj_inverse` launches the kernel or raises; on a
-CPU tensor it runs :func:`gj_inverse_plain`, the same elimination as a
-batched column loop in PyTorch. The kernel works in place and rounds
-each product and difference as the plain version does, so the two agree
-bit for bit. ``torch.linalg.inv`` is not a stand-in: it has no pivot
-clamp.
+CPU tensor it runs :func:`gj_inverse_plain`, the same in-place
+elimination as a batched column loop in PyTorch (its multiply-add in f64,
+rounded to odd where rounding on to f32 could part from one rounding), so
+the two agree bit for bit. ``torch.linalg.inv`` is not a stand-in: it has
+no pivot clamp.
 
 The kernel takes n <= 128 (one 512-thread block holds the matrix in its
 registers, 32 floats a thread). Wider systems, up to 512, go through
@@ -66,29 +80,73 @@ def gj_inverse_plain(A: torch.Tensor) -> torch.Tensor:
 def _gj_plain(A: torch.Tensor) -> torch.Tensor:
     B, n, _ = A.shape
     dev = A.device
-    eye = torch.eye(n, dtype=A.dtype, device=dev).expand(B, n, n)
-    aug = torch.cat([A, eye], dim=2)
+    x = A.clone()
     rows = torch.arange(n, device=dev)
     lanes = torch.arange(B, device=dev)
+    pivots = []
     for k in range(n):
-        score = torch.where(rows >= k, aug[:, :, k].abs(),
-                            torch.full_like(aug[:, :, k], -1.0))
+        # column k is read, then holds the inverse's column from here on
+        col = x[:, :, k].clone()
+        x[:, :, k] = 0.0
+        score = torch.where(rows >= k, col.abs(), torch.full_like(col, -1.0))
         top = score.amax(dim=1, keepdim=True)
         m = torch.where(score >= top, rows, n).amin(dim=1)
         m = torch.where(m < n, m, k)                     # NaN column
-        row_k = aug[:, k, :].clone()
-        row_m = aug[lanes, m, :]
-        piv = row_m[:, k]
+        piv = col[lanes, m]
         piv = torch.where(piv.abs() < PIVOT_FLOOR,
                           torch.where(piv < 0, -PIVOT_FLOOR, PIVOT_FLOOR)
                           .to(piv.dtype), piv)
-        row_p = row_m * (1.0 / piv)[:, None]
-        aug[lanes, m, :] = row_k                         # swap (m == k: no-op)
-        f = aug[:, :, k].clone()
-        f[:, k] = 0.0
-        aug = aug - f[:, :, None] * row_p[:, None, :]
-        aug[:, k, :] = row_p
-    return aug[:, :, n:].contiguous()
+        inv = 1.0 / piv
+        row_m = x[lanes, m, :]
+        row_k = x[:, k, :].clone()
+        row_p = row_m * inv[:, None]
+        row_p[:, k] = inv
+        f = col.clone()
+        f[lanes, m] = col[:, k]
+        # the exchange by arithmetic, as the reference's: row m becomes
+        # row_m + (row_k - row_m) (m == k: row k, overwritten below)
+        x[lanes, m, :] = row_m + (row_k - row_m)
+        x = _fused_sub(x, f[:, :, None], row_p[:, None, :])
+        x[:, k, :] = row_p
+        pivots.append(m)
+    # undo the exchanges as column swaps (k, m_k) in reverse order
+    dst = rows.expand(B, n)
+    for k in range(n - 1, -1, -1):
+        m = pivots[k][:, None]
+        dst = torch.where(dst == k, m, torch.where(dst == m, k, dst))
+    return torch.empty_like(x).scatter_(2, dst[:, None, :].expand(B, n, n), x)
+
+
+# f64 bits below f32 precision (normal range), and their pattern at an
+# f32 midpoint
+_BELOW_F32 = (1 << 29) - 1
+_MIDPOINT = 1 << 28
+_F32_MIN = 2.0 ** -126
+
+
+def _fused_sub(a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor) -> torch.Tensor:
+    """a - b c of f32 tensors (broadcast), rounded once to f32: a fused
+    multiply-add, as the kernel's ``__fmaf_rn`` and the reference's.
+
+    The product of two f32 values is exact in f64, so s = a - b c in f64
+    is the exact value rounded once. Rounding s on to f32 can part from
+    rounding the exact value only where s is an f32 midpoint (or lies in
+    the f32 subnormal range). Those entries are rounded to odd in f64
+    first (an inexact, even s moves one ulp toward the exact value, its
+    TwoSum error), which with 29 spare bits rounds to f32 as the exact
+    value does."""
+    a64 = a.double()
+    p = b.double() * c.double()
+    s = a64 - p
+    t = s - a64
+    err = (a64 - (s - t)) - (p + t)
+    bits = s.view(torch.int64)
+    odd = (bits & _BELOW_F32) == _MIDPOINT
+    odd |= (s.abs() < _F32_MIN) & (s != 0)
+    nudge = odd & (err != 0) & ((bits & 1) == 0) & s.isfinite()
+    s = torch.where(nudge, torch.nextafter(s, err * float("inf")), s)
+    return s.to(a.dtype)
 
 
 def gj_inverse(A: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ ones. The Newton solves are plain tensor arithmetic on M and J, and
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -50,6 +51,7 @@ REFINE_SWEEPS = 2      # per-solve refinement sweeps of "inv" / "inv_gated"
 MAX_REFINE = 4         # sweep limit of the adaptive "inv_fused" solve
 INV_METHODS = ("inv", "inv_gated", "inv_fused")
 EPS32 = 1.2e-7
+_gated = True          # the phase-2 gate of ``newton_schulz_refine``
 
 
 def resolve_linsolve(method: str, ns: int) -> str:
@@ -119,6 +121,8 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
        ``NS_MAX_SWEEPS`` accurate sweeps with the f64 residual, until it
        is below sqrt(0.3 NS_TOL).
 
+    Within :func:`ungated_refinement` step 3 takes every selected lane.
+
     Returns ``(minv, rn)``, rn the last (or predicted) residual per lane.
     """
     tol = NS_TOL
@@ -142,7 +146,8 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
                      * torch.sqrt(torch.tensor(float(n), dtype=f32))
                      * _rnorm(minv))
         tol_eff = torch.clamp(4.0 * floor_est, tol, NS_CAP)
-        need = need & (rn_cheap > tol_eff)
+        if _gated:
+            need = need & (rn_cheap > tol_eff)
 
     exit_rn = float(torch.tensor((0.3 * tol) ** 0.5, dtype=f32))
     thresh = max(exit_rn, float(torch.tensor(tol, dtype=f32)))
@@ -158,6 +163,28 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
         rn = torch.where(active, rn_new, rn)
     rn = torch.where(rn > tol, torch.minimum(rn, rn * rn), rn)
     return minv, rn
+
+
+@contextlib.contextmanager
+def ungated_refinement():
+    """Newton-Schulz without its phase-2 gate while the context is open:
+    every lane the proxy selects takes the accurate f64 sweeps, as the
+    reference under ``KINETICA_NS_PHASE2=always``.
+
+    The gate trades accuracy for the emulated f64 product on a TPU: a
+    factor it passes may keep a residual up to ``NS_CAP``, and the
+    "inv"/"inv_gated" solves then take their two refinement sweeps to
+    ~NS_CAP^3. The primal's Newton iteration is judged on f64 residuals
+    and absorbs that; a forward tangent through the factor (rule 2,
+    -M dA M) is judged by nothing. The forward-sensitivity solves run in
+    this context (:mod:`kinetica_tpu_torch.solving.sensitivity`).
+    """
+    global _gated
+    saved, _gated = _gated, False
+    try:
+        yield
+    finally:
+        _gated = saved
 
 
 def _inv_factor(A: torch.Tensor, inverse=schur_inverse) -> torch.Tensor:

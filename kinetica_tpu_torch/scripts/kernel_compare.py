@@ -19,10 +19,11 @@ sources and the headers they include, e.g. a parent commit's
 ``kinetica_tpu_torch/csrc`` unpacked by ``git archive``), those are built
 too and every shape is timed old, new, new, old in one process. The old
 Newton solve has the one-block-per-lane launch function
-``newton_solve_launch(M, J, b, c, dy, batch, n, n_sweeps, stream)``; the
-new one must equal it bit for bit on every case, and equal itself at
-every cluster size the card takes. The result is one JSON line on
-standard output, and in ``--out FILE`` if given.
+``newton_solve_launch(M, J, b, c, dy, batch, n, n_sweeps, stream)`` or the
+cluster one (``..., n_sweeps, cs, stream)``, launched at the new one's
+planned cluster size); the new one must equal it bit for bit on every
+case, and equal itself at every cluster size the card takes. The result
+is one JSON line on standard output, and in ``--out FILE`` if given.
 The matrix kernels' inputs are random, made from a seed: their times do
 not depend on the values. The Newton solve's time depends on the sweeps
 its lanes take, so its inputs are the Newton systems of ``chip_smoke.py``
@@ -128,16 +129,23 @@ def _old_dd(lib, dd: DDContraction):
     return call
 
 
-def _old_newton(lib):
+def _old_newton(lib, dev):
+    """The old Newton solve: the one-block-per-lane launch function, or the
+    cluster one (a library that exports ``newton_solve_max_clusters``)
+    at the cluster size the new one plans."""
     fn = lib.newton_solve_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    cluster = hasattr(lib, "newton_solve_max_clusters")
+    ints = [ctypes.c_int] * (4 if cluster else 3)
+    fn.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
 
     def call(M, J, b, c, n_sweeps=4):
         dy = torch.empty_like(b)
+        size = ((newton_solve._device_plan(b.shape[1], b.shape[0], dev),)
+                if cluster else ())
         cuda_build.check_launch(fn(
             M.data_ptr(), J.data_ptr(), b.data_ptr(), c.data_ptr(),
-            dy.data_ptr(), b.shape[0], b.shape[1], n_sweeps, _stream()),
-            "old newton_solve")
+            dy.data_ptr(), b.shape[0], b.shape[1], n_sweeps, *size,
+            _stream()), "old newton_solve")
         return dy
     return call
 
@@ -285,7 +293,7 @@ def main(argv=None) -> None:
             ln.strip() for ln in cuda_build.build_info[name]["ptxas"].splitlines()
             if "registers" in ln or "spill" in ln), flush=True)
     libs = _build_old(args.old) if args.old is not None else {}
-    old_newton = _old_newton(libs["newton_solve"]) if libs else None
+    old_newton = _old_newton(libs["newton_solve"], dev) if libs else None
     systems = _newton_cases(dev, rng)
     result = {"card": card, "check": {**check(dev, rng),
                                       **check_newton(dev, systems, old_newton)}}

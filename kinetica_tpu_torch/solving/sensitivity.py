@@ -26,7 +26,9 @@ The solve is the reference's: the discrete-rate chunkwise formalism,
 the plain dot RHS (no RHS kernel: it has no forward-mode rule) and the
 f64 segment-sum Jacobian, ``bdf_solve`` with its defaults for the linear
 solve ("auto", "inv_gated" up to 512 species on every device: the
-factor's tangent is rule 2, :mod:`~kinetica_tpu_torch.ops.linalg`), the
+factor's tangent is rule 2, :mod:`~kinetica_tpu_torch.ops.linalg`;
+its Newton-Schulz refinement without the phase-2 gate,
+:func:`~kinetica_tpu_torch.ops.linalg.ungated_refinement`), the
 Jacobian policy ("lazy") and the drift tolerance (0.1), and the step
 size and method state carried across chunks. Nothing in the step loop
 stops a gradient: the step size, the order rescaling of the differences
@@ -46,6 +48,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.mass_action import build_mass_action, resolve_clip_delta
 from ..ops import bdf
 from ..ops.interp import left_constant_lookup
+from ..ops.linalg import ungated_refinement
 from ..utils.logging import logger
 from .methods import (AbstractODESolveMethod, STAT_KEYS, VariableODESolve,
                       _chunk_local_stops, _chunk_save_grid, _make_rhs_jac,
@@ -165,6 +168,7 @@ class SensitivityProblem:
         k = left_constant_lookup(t_start + offset, tstops, ktab) * scale
         return k.to(self.dtype)
 
+    @ungated_refinement()
     def _solve_theta(self, theta, ktab=None, u0=None):
         """The theta-parameterised chunkwise solve, one lane per row of the
         (B, P) ``theta`` (a (P,) vector is one lane). Returns ``(ys,

@@ -15,6 +15,27 @@ import torch
 GJ_EDGE_WIDTHS = (1, 33, 53, 73, 127, 128)
 
 
+def near_singular_newton(B: int, n: int, seed: int = 0) -> np.ndarray:
+    """(B, n, n) f32 equilibrated Newton matrices I - c J that are
+    singular, or nearly so, in f32.
+
+    J is a conserved first-order network over every pair of species:
+    species j turns into species i at rate k_ij = 10^U(-2, 12), so J = K -
+    diag(column sums of K) and ones(n) is a left null vector of J; c =
+    10^U(0, 6) a member. Each I - c J is scaled by the Newton factor's row
+    and column equilibration (``ops.linalg._equilibrate``). A Gauss-Jordan
+    elimination that exchanges rows by an exact copy instead of the
+    reference's arithmetic meets an exactly cancelled pivot on some of
+    them and comes out at the 1e30 clamp."""
+    from ..ops.linalg import _equilibrate
+    rng = np.random.default_rng(seed)
+    K = 10.0 ** rng.uniform(-2.0, 12.0, (B, n, n))
+    K[:, np.arange(n), np.arange(n)] = 0.0
+    J = K - np.eye(n) * K.sum(axis=1)[:, None, :]
+    c = 10.0 ** rng.uniform(0.0, 6.0, (B, 1, 1))
+    return _equilibrate(torch.as_tensor(np.eye(n) - c * J))[0].numpy()
+
+
 def gj_edge_cases(n: int, seed: int = 0) -> tuple[np.ndarray, list[str]]:
     """(members, n, n) f32 matrices and their names.
 
@@ -24,7 +45,9 @@ def gj_edge_cases(n: int, seed: int = 0) -> tuple[np.ndarray, list[str]]:
       rows n // 3 and a later one (2 a and -2 a): the first row must win;
     * ``"nan_column"``: column n // 2 all NaN (the member comes out NaN,
       the others are untouched);
-    * ``"singular"``: column (n - 1) // 2 all zero (comes out finite).
+    * ``"singular"``: column (n - 1) // 2 all zero (comes out finite);
+    * ``"near_singular"``: a member of :func:`near_singular_newton` (the
+      pivot cancellations of the row exchange).
 
     ``"tie"`` needs two rows, so it is left out at n = 1.
     """
@@ -45,6 +68,7 @@ def gj_edge_cases(n: int, seed: int = 0) -> tuple[np.ndarray, list[str]]:
     sing = base.copy()
     sing[:, (n - 1) // 2] = 0.0
     cases["singular"] = sing
+    cases["near_singular"] = near_singular_newton(1, n, seed)[0]
     return np.stack(list(cases.values())), list(cases)
 
 
