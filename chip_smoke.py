@@ -91,8 +91,10 @@ The sharded ensemble and profiling:
   block kernels against their plain versions and launched in every rank;
 * phase 20: ``utils.profiling.trace`` around phase 6's ``solve_network``
   cut to one chunk with an ``annotate`` span (the Chrome trace must hold
-  the span and the kernels' device events), ``Timings`` with the
-  reference's three sections.
+  the span, the kernels' device events and the program's ``bdf.step`` and
+  ``host_sync.read`` spans; the solve record's spans must start within 50
+  us of their twins in the trace, and every kernel inside the record's
+  outermost span), ``Timings`` with the reference's three sections.
 
 The user programs:
 
@@ -1667,19 +1669,53 @@ def trace_events(path):
             for e in json.loads(text)["traceEvents"]]
 
 
+def trace_intervals(path, names):
+    """``{name: [(start ns, end ns)]}`` of the complete events of a Chrome
+    trace whose name is in ``names`` or whose category is "kernel" (under
+    the key "kernel"), on the Unix clock: kineto writes "ts" and "dur" in
+    us after the event's "pid" and "tid", relative to the trace's
+    ``baseTimeNanoseconds``."""
+    with open(path) as fh:
+        text = fh.read()
+    base = re.search(r'"baseTimeNanoseconds":\s*(\d+)', text)
+    base = int(base.group(1)) if base else 0
+
+    def ns(us):
+        whole, _, frac = us.partition(".")
+        return int(whole) * 1000 + int((frac + "000")[:3])
+    out = {}
+    pattern = (r'"cat":\s*"([^"]*)",\s*"name":\s*"((?:[^"\\]|\\.)*)",'
+               r'\s*"pid":[^,]*,\s*"tid":[^,]*,\s*"ts":\s*([0-9.]+),'
+               r'\s*"dur":\s*([0-9.]+)')
+    for m in re.finditer(pattern, text):
+        cat, name, ts, dur = m.groups()
+        key = "kernel" if cat == "kernel" else name
+        if key == "kernel" or name in names:
+            start = base + ns(ts)
+            out.setdefault(key, []).append((start, start + ns(dur)))
+    return out
+
+
 def phase_profiling(dev, counts, record, tmp):
     """Phase 20: ``utils.profiling`` on the card. ``trace`` around phase
     6's ``solve_network`` cut to its first chunk (0.5 s: the host and
     device events of its few hundred steps already make a trace of
     millions of events) with one ``annotate`` span, and ``Timings`` over
     it and phase 7's member 0 cut alike (discrete: the rate
-    pre-calculation): the trace must hold the span and the device events
-    of the path's kernels, the report the reference's three sections; the
-    traced solve must equal an untraced one bit for bit."""
+    pre-calculation): the trace must hold the span, the device events of
+    the path's kernels and the program's spans, the report the
+    reference's three sections; the traced solve must equal an untraced
+    one bit for bit. The solve record (the ``annotate`` span its
+    outermost) against the trace: every span starts within 50 us of its
+    twin there (the spans are stamped on the profiler's clock), and every
+    kernel starts inside the outermost span. The same traced solve with
+    the recorder held off (an outermost span opened before the profiler
+    starts records nothing) gives the cost of the spans."""
     import torch
     from kinetica_tpu_torch.solving.methods import (VariableODESolve,
                                                     solve_network)
-    from kinetica_tpu_torch.utils.profiling import Timings, annotate, trace
+    from kinetica_tpu_torch.utils.profiling import (Timings, annotate,
+                                                    last_solve, span, trace)
 
     tf = CHUNK
     sd, rd, calc, conds, pars = build_problem(
@@ -1687,7 +1723,7 @@ def phase_profiling(dev, counts, record, tmp):
     sd7, rd7, calc7, conds7, pars7 = build_problem(
         dev, ts_update=TS_UPDATE, tf=tf, linsolve="inv_fused",
         rhs_contraction="dd")
-    span = "chip_smoke.phase20"
+    span_name = "chip_smoke.phase20"
     logdir = os.path.join(tmp, "trace")
     plain, plain_s = timed_run(lambda: solve_network(
         VariableODESolve(pars, conds[0], calc), sd, rd, device=dev))
@@ -1695,14 +1731,15 @@ def phase_profiling(dev, counts, record, tmp):
     Timings.enable(True)
     try:
         counts.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with trace(logdir) as path:
-            with annotate(span):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with annotate(span_name):
                 out = solve_network(VariableODESolve(pars, conds[0], calc),
                                     sd, rd, device=dev)
-            torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
+                torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        rec = last_solve()
         launches, syncs = counts.read()
         out7 = solve_network(VariableODESolve(pars7, conds7[0], calc7), sd7,
                              rd7, device=dev)
@@ -1710,10 +1747,15 @@ def phase_profiling(dev, counts, record, tmp):
     finally:
         Timings.enable(False)
         Timings.reset()
+    with span("chip_smoke.phase20_spans_off"):
+        with trace(os.path.join(tmp, "trace_off")):
+            quiet, quiet_s = timed_run(lambda: solve_network(
+                VariableODESolve(pars, conds[0], calc), sd, rd, device=dev))
     if not (out.sol.success and out7.sol.success):
         fail(f"phase 20: {out.sol.retcode}, {out7.sol.retcode}")
-    if not np.array_equal(out.sol.u, plain.sol.u):
-        fail("phase 20: the traced solve differs from the untraced one")
+    if not (np.array_equal(out.sol.u, plain.sol.u)
+            and np.array_equal(quiet.sol.u, plain.sol.u)):
+        fail("phase 20: a traced solve differs from the untraced one")
     events = trace_events(path)
     device = {}
     for cat, name in events:
@@ -1721,9 +1763,41 @@ def phase_profiling(dev, counts, record, tmp):
             for k in ("dd_contract", "newton_solve", "gj_inverse"):
                 if f"{k}_kernel" in name:
                     device[k] = device.get(k, 0) + 1
-    spans = [name for _, name in events if name == span]
+    names = {name for _, name in events}
+    spans = [name for _, name in events if name == span_name]
     if set(device) != {"dd_contract", "newton_solve", "gj_inverse"} or not spans:
         fail(f"phase 20: device events {device}, span events {len(spans)}")
+    if not {"bdf.step", "host_sync.read"} <= names:
+        fail("phase 20: the trace holds no bdf.step or host_sync.read span")
+    if rec is None or rec.top.name != span_name:
+        fail(f"phase 20: the solve record's outermost span is "
+             f"{rec and rec.top.name}, not {span_name}")
+    twins = trace_intervals(path, {s.name for s in rec.spans})
+    offsets = []     # (|start offset|, |end offset|, name, ordinal)
+    for name in {s.name for s in rec.spans}:
+        mine = sorted((s.start_ns, s.end_ns) for s in rec.spans
+                      if s.name == name)
+        theirs = sorted(twins.get(name, []))
+        if len(mine) != len(theirs):
+            fail(f"phase 20: {len(mine)} {name} spans, {len(theirs)} in "
+                 f"the trace")
+        offsets += [(abs(a[0] - b[0]), abs(a[1] - b[1]), name, i)
+                    for i, (a, b) in enumerate(zip(mine, theirs))]
+    offsets.sort(reverse=True)
+    off_med = float(np.median([o[0] for o in offsets]))
+    off_max = offsets[0][0]
+    worst = ", ".join(f"{n} #{i} {a / 1e3:.1f} / {b / 1e3:.1f} us"
+                      for a, b, n, i in offsets[:4])
+    if off_max > 50_000:
+        fail(f"phase 20: span starts {off_max / 1e3:.1f} us from their "
+             f"twins in the trace (median {off_med / 1e3:.2f} us; largest "
+             f"start / end offsets: {worst})")
+    kernels = twins.get("kernel", [])
+    outside = [a for a, _ in kernels
+               if not rec.top.start_ns <= a <= rec.top.end_ns]
+    if not kernels or outside:
+        fail(f"phase 20: {len(outside)} of {len(kernels)} kernels start "
+             f"outside the record's outermost span")
     sections = ("solve.calculator_setup", "solve.chunk_dispatch",
                 "solve.rate_precalc")
     if not all(rep.get(s, {}).get("count", 0) >= 1 for s in sections):
@@ -1733,12 +1807,19 @@ def phase_profiling(dev, counts, record, tmp):
     steps = out.sol.stats["n_steps"]
     record("20", launches, steps)
     say(f"phase 20 profiling: phase 6 cut to tf {tf} s, {steps} steps, "
-        f"traced {traced_s:.3f} s vs untraced {plain_s:.3f} s (bit-equal); "
+        f"traced {traced_s:.3f} s (spans held off, the next session: "
+        f"{quiet_s:.3f} s; both without the trace's export) vs "
+        f"untraced {plain_s:.3f} s (bit-equal); "
         f"trace {os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events, "
         f"device events {device} (launches {launches}), span "
-        f"{len(spans)}x; host syncs {syncs}; Timings "
-        + "; ".join(f"{k} {v['count']}x {v['total_s']:.3f} s"
-                    for k, v in rep.items()))
+        f"{len(spans)}x; solve record {len(rec.spans)} spans, starts vs "
+        f"their trace twins median {off_med / 1e3:.3f} us, largest "
+        f"{off_max / 1e3:.3f} us (start / end: {worst}); {len(kernels)} "
+        f"kernels inside its "
+        f"outermost span; host syncs {syncs} by site "
+        f"{rec.counters['host_sync.by_site']}; Timings "
+        + "; ".join(f"{k} {v['count']}x {v['total_s']:.3f} s "
+                    f"(self {v['self_s']:.3f})" for k, v in rep.items()))
 
 
 # ---- phases 21-22: the examples and the tutorials ----

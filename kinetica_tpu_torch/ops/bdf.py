@@ -33,6 +33,12 @@ left, whether J needs a refresh) go through
 :mod:`kinetica_tpu_torch.ops.host_sync`, which counts them. The rest of a
 step is branch-free tensor arithmetic on all lanes.
 
+Its phases are spans of :mod:`kinetica_tpu_torch.utils.profiling`
+(``bdf.solve``, ``bdf.init``, ``bdf.step``, ``bdf.predict``,
+``bdf.newton``, ``bdf.newton_iter``, ``bdf.jac_refresh``,
+``bdf.control``, ``bdf.chunk_transition``), and ``newton_iters`` counts
+the batch's Newton iterations.
+
 Not ported: the in-carry debug trace.
 """
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..precision import assert_precision_policy
+from ..utils.profiling import span, spanned
 from . import host_sync
 from .linalg import (NewtonFactors, lu_precision_dtype, newton_factor,
                      newton_solve, resolve_linsolve)
@@ -52,8 +59,11 @@ MIN_FACTOR = 0.2
 MAX_FACTOR = 10.0
 _NOISE_ACCEPT = 0.03  # scaled-units Newton noise-floor acceptance threshold
 
-# stale-J refreshes of the batch since the last reset (a run reports them)
+# since the last reset (a run reports them): the batch's stale-J
+# refreshes, and its Newton iterations (each runs the RHS and the Newton
+# solve on every lane)
 jac_refreshes = 0
+newton_iters = 0
 
 # Status codes
 RUNNING = 0
@@ -186,6 +196,7 @@ class _State:
             setattr(self, k, torch.where(m, v, old))
 
 
+@spanned("bdf.solve")
 def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
               tf: float, saveat, rtol=1e-8, atol=1e-10, stops=None,
               max_steps: int = 100000, first_step=None,
@@ -342,55 +353,58 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
     inf = torch.full((B,), float("inf"), **f64)
 
     # ---- initial state ----
-    t_init = torch.full((B,), t0, **f64)
-    nc0 = torch.zeros(B, **i64)
-    pre0 = prep(t_init, t_init, nc0)
-    f0 = rhs(t_init, y0, pre0)
-    h_init = select_initial_step(rhs, pre0, t_init, y0, f0, tf, rtol, atol)
-    fs, fs_ok = h_init, torch.zeros(B, dtype=torch.bool, device=dev)
-    if first_step is not None:
-        fs = torch.as_tensor(first_step, **f64).expand(B)
-        fs_ok = torch.isfinite(fs) & (fs > 0.0)
-        h_init = torch.where(fs_ok, torch.clamp(fs, max=abs(tf - t0)), h_init)
-    D0 = torch.zeros(B, MAX_ORDER + 3, ns, dtype=dtype, device=dev)
-    D0[:, 0] = y0
-    D0[:, 1] = f0 * h_init.to(dtype)[:, None]
-    order0 = torch.ones(B, **i64)
-    neq0 = torch.zeros(B, **i64)
-    if warm_start is not None:
-        D_w, order_w, neq_w = warm_start
-        order_w = torch.as_tensor(order_w, **i64).expand(B)
-        warm_ok = fs_ok & (order_w >= 1)
-        rescale = torch.where(warm_ok, h_init / torch.where(fs_ok, fs, h_init),
-                              torch.ones_like(h_init))
-        D_w = _change_D(torch.as_tensor(D_w, dtype=dtype, device=dev),
-                        torch.clamp(order_w, min=1), rescale)
-        D_w[:, 0] = y0
-        D0 = torch.where(warm_ok[:, None, None], D_w, D0)
-        order0 = torch.where(warm_ok, order_w, order0)
-        neq0 = torch.where(warm_ok, torch.as_tensor(neq_w, **i64).expand(B),
-                           neq0)
-    J0 = jac(t_init, y0, pre0)
-    c0 = h_init / alpha[order0]
-    fact0 = newton_factor(J0, c0.to(dtype), lu_dtype, method=linsolve)
-    save_ptr0 = int(torch.searchsorted(saveat, torch.tensor([t0], **f64),
-                                       right=True)[0])
-    zi = torch.zeros(B, **i64)
-    s = _State(
-        t=t_init, h=h_init, order=order0, D=D0, n_equal_steps=neq0,
-        lu=fact0.lu, piv=fact0.piv, J=J0,
-        current_jac=torch.ones(B, dtype=torch.bool, device=dev), c_lu=c0,
-        status=torch.full((B,), RUNNING, **i64), n_steps=zi,
-        n_accepted=zi, n_rejected=zi, n_fev=zi + 2, n_jev=zi + 1, n_lu=zi + 1,
-        save_ptr=zi + save_ptr0,
-        ys=torch.zeros(B, n_save, ns, dtype=dtype, device=dev),
-        stop_ptr=stop_ptr0, bruised=torch.zeros(B, dtype=torch.bool, device=dev),
-        h_ncf=inf.clone(), nc=nc0,
-        ys_all=(torch.zeros(B, chunks, n_save, ns, dtype=dtype, device=dev)
-                if chunked else torch.zeros(B, 0, device=dev)))
+    with span("bdf.init"):
+        t_init = torch.full((B,), t0, **f64)
+        nc0 = torch.zeros(B, **i64)
+        pre0 = prep(t_init, t_init, nc0)
+        f0 = rhs(t_init, y0, pre0)
+        h_init = select_initial_step(rhs, pre0, t_init, y0, f0, tf, rtol, atol)
+        fs, fs_ok = h_init, torch.zeros(B, dtype=torch.bool, device=dev)
+        if first_step is not None:
+            fs = torch.as_tensor(first_step, **f64).expand(B)
+            fs_ok = torch.isfinite(fs) & (fs > 0.0)
+            h_init = torch.where(fs_ok, torch.clamp(fs, max=abs(tf - t0)), h_init)
+        D0 = torch.zeros(B, MAX_ORDER + 3, ns, dtype=dtype, device=dev)
+        D0[:, 0] = y0
+        D0[:, 1] = f0 * h_init.to(dtype)[:, None]
+        order0 = torch.ones(B, **i64)
+        neq0 = torch.zeros(B, **i64)
+        if warm_start is not None:
+            D_w, order_w, neq_w = warm_start
+            order_w = torch.as_tensor(order_w, **i64).expand(B)
+            warm_ok = fs_ok & (order_w >= 1)
+            rescale = torch.where(warm_ok, h_init / torch.where(fs_ok, fs, h_init),
+                                  torch.ones_like(h_init))
+            D_w = _change_D(torch.as_tensor(D_w, dtype=dtype, device=dev),
+                            torch.clamp(order_w, min=1), rescale)
+            D_w[:, 0] = y0
+            D0 = torch.where(warm_ok[:, None, None], D_w, D0)
+            order0 = torch.where(warm_ok, order_w, order0)
+            neq0 = torch.where(warm_ok, torch.as_tensor(neq_w, **i64).expand(B),
+                               neq0)
+        J0 = jac(t_init, y0, pre0)
+        c0 = h_init / alpha[order0]
+        fact0 = newton_factor(J0, c0.to(dtype), lu_dtype, method=linsolve)
+        save_ptr0 = int(torch.searchsorted(saveat, torch.tensor([t0], **f64),
+                                           right=True)[0])
+        zi = torch.zeros(B, **i64)
+        s = _State(
+            t=t_init, h=h_init, order=order0, D=D0, n_equal_steps=neq0,
+            lu=fact0.lu, piv=fact0.piv, J=J0,
+            current_jac=torch.ones(B, dtype=torch.bool, device=dev), c_lu=c0,
+            status=torch.full((B,), RUNNING, **i64), n_steps=zi,
+            n_accepted=zi, n_rejected=zi, n_fev=zi + 2, n_jev=zi + 1, n_lu=zi + 1,
+            save_ptr=zi + save_ptr0,
+            ys=torch.zeros(B, n_save, ns, dtype=dtype, device=dev),
+            stop_ptr=stop_ptr0, bruised=torch.zeros(B, dtype=torch.bool, device=dev),
+            h_ncf=inf.clone(), nc=nc0,
+            ys_all=(torch.zeros(B, chunks, n_save, ns, dtype=dtype, device=dev)
+                    if chunked else torch.zeros(B, 0, device=dev)))
 
+    @spanned("bdf.newton")
     def newton_iterate(run, t_new, pre, y_pred, c, psi, scale, fact):
         """Simplified Newton on the running lanes: d = c f(t_new, y_pred + d) - psi."""
+        global newton_iters
         d = torch.zeros_like(y_pred)
         y = y_pred
         n_it = torch.zeros(B, **i64)
@@ -400,28 +414,31 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         for it in range(NEWTON_MAXITER):
             # a lane needs >= 2 iterations unless its first update is tiny,
             # so the first read of the active mask comes after two
-            if it >= 2 and not host_sync.any_true(active):
+            if it >= 2 and not host_sync.any_true(active, "bdf.newton"):
                 break
-            f = rhs(t_new, y, pre)
-            dy = newton_solve(fact, c[:, None] * f - psi - d, refine=refine,
-                              method=linsolve)
-            dy_norm = _scaled_norm(dy, scale)
-            small = dy_norm < 0.03 * newton_tol
-            if it > 0:
-                rate = dy_norm / torch.clamp(dy_last, min=_TINY32)
-                conv = small | ((rate < 1.0)
-                                & (rate / (1 - rate) * dy_norm < newton_tol))
-                bad = (~small) & (rate >= 1.2) & (~conv)
-            else:
-                conv = small | (dy_norm == 0.0)
-                bad = torch.zeros_like(conv)
-            a = active[:, None]
-            d = torch.where(a, d + dy, d)
-            y = torch.where(a, y + dy, y)
-            n_it = torch.where(active, it + 1, n_it)
-            dy_last = torch.where(active, dy_norm, dy_last)
-            converged = torch.where(active, conv, converged)
-            active = active & ~conv & ~bad
+            newton_iters += 1
+            with span("bdf.newton_iter"):
+                f = rhs(t_new, y, pre)
+                dy = newton_solve(fact, c[:, None] * f - psi - d,
+                                  refine=refine, method=linsolve)
+                dy_norm = _scaled_norm(dy, scale)
+                small = dy_norm < 0.03 * newton_tol
+                if it > 0:
+                    rate = dy_norm / torch.clamp(dy_last, min=_TINY32)
+                    conv = small | ((rate < 1.0)
+                                    & (rate / (1 - rate) * dy_norm
+                                       < newton_tol))
+                    bad = (~small) & (rate >= 1.2) & (~conv)
+                else:
+                    conv = small | (dy_norm == 0.0)
+                    bad = torch.zeros_like(conv)
+                a = active[:, None]
+                d = torch.where(a, d + dy, d)
+                y = torch.where(a, y + dy, y)
+                n_it = torch.where(active, it + 1, n_it)
+                dy_last = torch.where(active, dy_norm, dy_last)
+                converged = torch.where(active, conv, converged)
+                active = active & ~conv & ~bad
         # exits whose last update sat below the noise floor count as converged
         converged = converged | ((n_it > 0) & (dy_last < _NOISE_ACCEPT))
         return converged, n_it, y, d
@@ -456,32 +473,33 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
 
     def step_attempt(run):
         global jac_refreshes
-        t, h_pre, order = s.t, s.h, s.order
-        # --- clamp h so no step straddles tf or the next stop ---
-        h_min = t.abs() * eps * 10 + torch.finfo(tdt).tiny * 1e4
-        sp = torch.clamp(s.stop_ptr, max=n_stops - 1)
-        next_stop = torch.where(s.stop_ptr < n_stops, stops[lanes, sp], inf)
-        t_bound = torch.clamp(next_stop, max=tf)
-        clamp = (t + 1.02 * h_pre) >= (t_bound - tol_t)
-        h = torch.where(clamp, torch.maximum(t_bound - t, h_min), h_pre)
-        D = torch.where(clamp[:, None, None], _change_D(s.D, order, h / h_pre),
-                        s.D)
-        n_equal_steps = torch.where(clamp, 0, s.n_equal_steps)
-        t_new = torch.where(clamp, t_bound, t + h)
+        with span("bdf.predict"):
+            t, h_pre, order = s.t, s.h, s.order
+            # --- clamp h so no step straddles tf or the next stop ---
+            h_min = t.abs() * eps * 10 + torch.finfo(tdt).tiny * 1e4
+            sp = torch.clamp(s.stop_ptr, max=n_stops - 1)
+            next_stop = torch.where(s.stop_ptr < n_stops, stops[lanes, sp], inf)
+            t_bound = torch.clamp(next_stop, max=tf)
+            clamp = (t + 1.02 * h_pre) >= (t_bound - tol_t)
+            h = torch.where(clamp, torch.maximum(t_bound - t, h_min), h_pre)
+            D = torch.where(clamp[:, None, None], _change_D(s.D, order, h / h_pre),
+                            s.D)
+            n_equal_steps = torch.where(clamp, 0, s.n_equal_steps)
+            t_new = torch.where(clamp, t_bound, t + h)
 
-        # --- predictor ---
-        rows = idx8[None, :, None]
-        o3 = order[:, None, None]
-        y_pred = torch.where(rows <= o3, D, torch.zeros_like(D)).sum(dim=1)
-        scale_pred = atol32 + rtol32 * torch.clamp(y_pred.abs(), max=1e37).to(F32)
-        gsel = (idx8[None, :] >= 1) & (idx8[None, :] <= order[:, None])
-        gamma_w = torch.where(gsel, gamma[torch.clamp(idx8, max=MAX_ORDER)],
-                              torch.zeros((), **f64))
-        psi = (gamma_w.to(dtype)[:, :, None] * D).sum(dim=1) / \
-            alpha[order].to(dtype)[:, None]
-        c = h / alpha[order]
-        c_state = c.to(dtype)
-        pre = prep(t_new, t, s.nc)
+            # --- predictor ---
+            rows = idx8[None, :, None]
+            o3 = order[:, None, None]
+            y_pred = torch.where(rows <= o3, D, torch.zeros_like(D)).sum(dim=1)
+            scale_pred = atol32 + rtol32 * torch.clamp(y_pred.abs(), max=1e37).to(F32)
+            gsel = (idx8[None, :] >= 1) & (idx8[None, :] <= order[:, None])
+            gamma_w = torch.where(gsel, gamma[torch.clamp(idx8, max=MAX_ORDER)],
+                                  torch.zeros((), **f64))
+            psi = (gamma_w.to(dtype)[:, :, None] * D).sum(dim=1) / \
+                alpha[order].to(dtype)[:, None]
+            c = h / alpha[order]
+            c_state = c.to(dtype)
+            pre = prep(t_new, t, s.nc)
 
         if jac_policy == "always":
             # J and the factor fresh at every attempt: no stale-J retry
@@ -508,131 +526,133 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
             # Newton failed on a stale Jacobian: refresh J, redo the step next
             refresh = run & ~converged & ~s.current_jac
             J = s.J
-            if host_sync.any_true(refresh):
+            if host_sync.any_true(refresh, "bdf.jac_refresh"):
                 jac_refreshes += 1
-                J = torch.where(refresh[:, None, None], jac(t_new, y_pred, pre),
-                                J)
+                with span("bdf.jac_refresh"):
+                    J = torch.where(refresh[:, None, None],
+                                    jac(t_new, y_pred, pre), J)
             current_jac = s.current_jac | refresh
             n_jev = s.n_jev + refresh.long()
             c_lu_next = torch.where(refresh, -inf,
                                     torch.where(need_lu, c, s.c_lu))
 
-        safety = (0.9 * (2 * NEWTON_MAXITER + 1)
-                  / (2 * NEWTON_MAXITER + n_it.to(F32)))
+        with span("bdf.control"):
+            safety = (0.9 * (2 * NEWTON_MAXITER + 1)
+                      / (2 * NEWTON_MAXITER + n_it.to(F32)))
 
-        # --- error test (norms in f32, d in the state dtype) ---
-        scale_full = (atol[:, None] + rtol[:, None]
-                      * torch.clamp(y_new.abs(), max=1e37))
-        err_norm = _rms_norm(error_const32[order][:, None]
-                             * (d / scale_full).to(F32))
-        neg = (torch.full_like(converged, nonnegative)
-               & (y_new.amin(dim=1) < 0.0))
-        accept = converged & (err_norm <= 1.0) & ~neg
+            # --- error test (norms in f32, d in the state dtype) ---
+            scale_full = (atol[:, None] + rtol[:, None]
+                          * torch.clamp(y_new.abs(), max=1e37))
+            err_norm = _rms_norm(error_const32[order][:, None]
+                                 * (d / scale_full).to(F32))
+            neg = (torch.full_like(converged, nonnegative)
+                   & (y_new.amin(dim=1) < 0.0))
+            accept = converged & (err_norm <= 1.0) & ~neg
 
-        # --- accept path: differences, dense output, order adaptation ---
-        n_eq_acc = n_equal_steps + 1
-        d_proj = (torch.clamp(y_new, min=0.0) - y_pred if nonnegative_project
-                  else d)
-        selq = rows == (o3 + 1)
-        Dq1 = torch.where(selq, D, torch.zeros_like(D)).sum(dim=1)
-        D_mid = torch.where(selq, d_proj[:, None],
-                            torch.where(rows == o3 + 2, (d_proj - Dq1)[:, None],
-                                        D))
-        contrib = torch.where(rows <= o3 + 1, D_mid, torch.zeros_like(D_mid))
-        suffix = contrib.flip(1).cumsum(dim=1).flip(1)
-        D2 = torch.where(rows <= o3, suffix, D_mid)
-        save_ptr2, ys2 = fill_saveat(t_new, h, order, D2, s.save_ptr, s.ys)
-        done = t_new >= tf - tol_t
-        hit_stop = (t_new - next_stop).abs() <= tol_t
+            # --- accept path: differences, dense output, order adaptation ---
+            n_eq_acc = n_equal_steps + 1
+            d_proj = (torch.clamp(y_new, min=0.0) - y_pred if nonnegative_project
+                      else d)
+            selq = rows == (o3 + 1)
+            Dq1 = torch.where(selq, D, torch.zeros_like(D)).sum(dim=1)
+            D_mid = torch.where(selq, d_proj[:, None],
+                                torch.where(rows == o3 + 2, (d_proj - Dq1)[:, None],
+                                            D))
+            contrib = torch.where(rows <= o3 + 1, D_mid, torch.zeros_like(D_mid))
+            suffix = contrib.flip(1).cumsum(dim=1).flip(1)
+            D2 = torch.where(rows <= o3, suffix, D_mid)
+            save_ptr2, ys2 = fill_saveat(t_new, h, order, D2, s.save_ptr, s.ys)
+            done = t_new >= tf - tol_t
+            hit_stop = (t_new - next_stop).abs() <= tol_t
 
-        od = order.to(F32)
-        err_m = torch.where(
-            order > 1,
-            _rms_norm(error_const32[torch.clamp(order - 1, min=0)][:, None]
-                      * (gather_row(D2, order) / scale_full).to(F32)),
-            torch.full_like(err_norm, float("inf")))
-        err_p = torch.where(
-            order < MAX_ORDER,
-            _rms_norm(error_const32[torch.clamp(order + 1, max=MAX_ORDER)][:, None]
-                      * (gather_row(D2, order + 2) / scale_full).to(F32)),
-            torch.full_like(err_norm, float("inf")))
-        factors = torch.stack([err_factor(err_m, 1.0 / od),
-                               err_factor(err_norm, 1.0 / (od + 1)),
-                               err_factor(err_p, 1.0 / (od + 2))], dim=1)
-        best = torch.argmax(factors, dim=1)
-        do_adapt = (n_eq_acc >= order + 1) & ~clamp
-        new_order = torch.where(do_adapt,
-                                torch.clamp(order + best - 1, 1, MAX_ORDER),
-                                order)
-        factor_acc = torch.where(
-            do_adapt,
-            torch.clamp(safety * factors[lanes, best], MIN_FACTOR, MAX_FACTOR),
-            torch.ones_like(safety))
-        factor_acc = safe_factor(factor_acc, 1.0)
-        # hold h on the first accepted step after a Newton failure
-        factor_acc = torch.where(s.bruised, torch.clamp(factor_acc, max=1.0),
-                                 factor_acc)
-        # Newton-failure ceiling, relaxing x1.5 per accepted step
-        ncf_cap = torch.where(
-            torch.isfinite(s.h_ncf),
-            torch.clamp(torch.clamp(0.9 * s.h_ncf / h, max=1e30).to(F32),
-                        min=1.0),
-            torch.full_like(factor_acc, MAX_FACTOR))
-        factor_acc = torch.minimum(factor_acc, safe_factor(ncf_cap, MAX_FACTOR))
-        # after a clamped step restore the pre-clamp h (overrides the caps)
-        factor_acc = torch.where(
-            clamp,
-            safe_factor(torch.clamp(h_pre / h, max=MAX_FACTOR).to(F32), 1.0),
-            factor_acc)
-        rescale_acc = clamp | do_adapt
+            od = order.to(F32)
+            err_m = torch.where(
+                order > 1,
+                _rms_norm(error_const32[torch.clamp(order - 1, min=0)][:, None]
+                          * (gather_row(D2, order) / scale_full).to(F32)),
+                torch.full_like(err_norm, float("inf")))
+            err_p = torch.where(
+                order < MAX_ORDER,
+                _rms_norm(error_const32[torch.clamp(order + 1, max=MAX_ORDER)][:, None]
+                          * (gather_row(D2, order + 2) / scale_full).to(F32)),
+                torch.full_like(err_norm, float("inf")))
+            factors = torch.stack([err_factor(err_m, 1.0 / od),
+                                   err_factor(err_norm, 1.0 / (od + 1)),
+                                   err_factor(err_p, 1.0 / (od + 2))], dim=1)
+            best = torch.argmax(factors, dim=1)
+            do_adapt = (n_eq_acc >= order + 1) & ~clamp
+            new_order = torch.where(do_adapt,
+                                    torch.clamp(order + best - 1, 1, MAX_ORDER),
+                                    order)
+            factor_acc = torch.where(
+                do_adapt,
+                torch.clamp(safety * factors[lanes, best], MIN_FACTOR, MAX_FACTOR),
+                torch.ones_like(safety))
+            factor_acc = safe_factor(factor_acc, 1.0)
+            # hold h on the first accepted step after a Newton failure
+            factor_acc = torch.where(s.bruised, torch.clamp(factor_acc, max=1.0),
+                                     factor_acc)
+            # Newton-failure ceiling, relaxing x1.5 per accepted step
+            ncf_cap = torch.where(
+                torch.isfinite(s.h_ncf),
+                torch.clamp(torch.clamp(0.9 * s.h_ncf / h, max=1e30).to(F32),
+                            min=1.0),
+                torch.full_like(factor_acc, MAX_FACTOR))
+            factor_acc = torch.minimum(factor_acc, safe_factor(ncf_cap, MAX_FACTOR))
+            # after a clamped step restore the pre-clamp h (overrides the caps)
+            factor_acc = torch.where(
+                clamp,
+                safe_factor(torch.clamp(h_pre / h, max=MAX_FACTOR).to(F32), 1.0),
+                factor_acc)
+            rescale_acc = clamp | do_adapt
 
-        factor_rej = safe_factor(
-            torch.clamp(safety * err_norm ** (-1.0 / (od + 1)), MIN_FACTOR, 1.0),
-            MIN_FACTOR)
-        factor_rej = torch.where(neg, torch.clamp(factor_rej, max=0.5),
-                                 factor_rej)
+            factor_rej = safe_factor(
+                torch.clamp(safety * err_norm ** (-1.0 / (od + 1)), MIN_FACTOR, 1.0),
+                MIN_FACTOR)
+            factor_rej = torch.where(neg, torch.clamp(factor_rej, max=0.5),
+                                     factor_rej)
 
-        # outcome: accept | error-reject | jac-refresh | newton-fail
-        reject = converged & ~accept
-        nfail = ~converged & ~refresh
-        order_next = torch.where(accept, new_order, order)
-        factor = torch.where(
-            accept, factor_acc.to(tdt),
-            torch.where(reject, factor_rej.to(tdt),
-                        torch.where(nfail, torch.full_like(h, 0.5),
-                                    torch.ones_like(h))))
-        rescale = torch.where(accept, rescale_acc, reject | nfail)
-        D_base = torch.where(accept[:, None, None], D2, D)
-        D_next = torch.where(rescale[:, None, None],
-                             _change_D(D_base, order_next, factor), D_base)
-        h_next = torch.where(rescale, h * factor, h)
-        n_eq_next = torch.where(
-            accept, torch.where(rescale_acc, 0, n_eq_acc),
-            torch.where(refresh, n_equal_steps, 0))
-        t_next = torch.where(accept, t_new, t)
-        n_steps = s.n_steps + 1
-        status = torch.where(accept & done, DONE, s.status)
-        # NaN/inf in h or t never recovers: fail the lane at once
-        h_under = (h_next < h_min) | ~(torch.isfinite(h_next)
-                                       & torch.isfinite(t_next))
-        status = torch.where(
-            status == DONE, DONE,
-            torch.where(n_steps >= max_steps, FAIL_MAX_STEPS,
-                        torch.where(h_under, FAIL_H_UNDERFLOW, RUNNING)))
-        s.merge(
-            run, t=t_next, h=h_next, order=order_next, D=D_next,
-            n_equal_steps=n_eq_next, lu=fnew.lu, piv=fnew.piv, J=J,
-            c_lu=c_lu_next, current_jac=current_jac & ~accept, status=status,
-            n_accepted=s.n_accepted + accept.long(),
-            n_rejected=s.n_rejected + (reject | nfail).long(),
-            save_ptr=torch.where(accept, save_ptr2, s.save_ptr),
-            ys=torch.where(accept[:, None, None], ys2, s.ys),
-            stop_ptr=torch.where(accept, s.stop_ptr + hit_stop.long(),
-                                 s.stop_ptr),
-            n_jev=n_jev, n_lu=n_lu, n_fev=s.n_fev + n_it, n_steps=n_steps,
-            bruised=torch.where(accept, False, s.bruised | nfail),
-            h_ncf=torch.where(nfail & ~clamp, h,
-                              torch.where(accept, s.h_ncf * 1.5, s.h_ncf)))
+            # outcome: accept | error-reject | jac-refresh | newton-fail
+            reject = converged & ~accept
+            nfail = ~converged & ~refresh
+            order_next = torch.where(accept, new_order, order)
+            factor = torch.where(
+                accept, factor_acc.to(tdt),
+                torch.where(reject, factor_rej.to(tdt),
+                            torch.where(nfail, torch.full_like(h, 0.5),
+                                        torch.ones_like(h))))
+            rescale = torch.where(accept, rescale_acc, reject | nfail)
+            D_base = torch.where(accept[:, None, None], D2, D)
+            D_next = torch.where(rescale[:, None, None],
+                                 _change_D(D_base, order_next, factor), D_base)
+            h_next = torch.where(rescale, h * factor, h)
+            n_eq_next = torch.where(
+                accept, torch.where(rescale_acc, 0, n_eq_acc),
+                torch.where(refresh, n_equal_steps, 0))
+            t_next = torch.where(accept, t_new, t)
+            n_steps = s.n_steps + 1
+            status = torch.where(accept & done, DONE, s.status)
+            # NaN/inf in h or t never recovers: fail the lane at once
+            h_under = (h_next < h_min) | ~(torch.isfinite(h_next)
+                                           & torch.isfinite(t_next))
+            status = torch.where(
+                status == DONE, DONE,
+                torch.where(n_steps >= max_steps, FAIL_MAX_STEPS,
+                            torch.where(h_under, FAIL_H_UNDERFLOW, RUNNING)))
+            s.merge(
+                run, t=t_next, h=h_next, order=order_next, D=D_next,
+                n_equal_steps=n_eq_next, lu=fnew.lu, piv=fnew.piv, J=J,
+                c_lu=c_lu_next, current_jac=current_jac & ~accept, status=status,
+                n_accepted=s.n_accepted + accept.long(),
+                n_rejected=s.n_rejected + (reject | nfail).long(),
+                save_ptr=torch.where(accept, save_ptr2, s.save_ptr),
+                ys=torch.where(accept[:, None, None], ys2, s.ys),
+                stop_ptr=torch.where(accept, s.stop_ptr + hit_stop.long(),
+                                     s.stop_ptr),
+                n_jev=n_jev, n_lu=n_lu, n_fev=s.n_fev + n_it, n_steps=n_steps,
+                bruised=torch.where(accept, False, s.bruised | nfail),
+                h_ncf=torch.where(nfail & ~clamp, h,
+                                  torch.where(accept, s.h_ncf * 1.5, s.h_ncf)))
 
     def dump_chunk(mask):
         """ys_all[b, nc[b]] = ys[b] on the lanes in ``mask``."""
@@ -640,6 +660,7 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
                                == s.nc[:, None])
         s.ys_all = torch.where(sel[:, :, None, None], s.ys[:, None], s.ys_all)
 
+    @spanned("bdf.chunk_transition")
     def chunk_transition():
         """Lanes that finished a chunk (not the last) start the next one."""
         trans = (s.status == DONE) & (s.nc < chunks - 1)
@@ -658,19 +679,24 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
                 stop_ptr=stop_ptr2, status=torch.full_like(s.status, RUNNING),
                 n_equal_steps=torch.where(shrink, 0, s.n_equal_steps))
 
-    while True:
+    def running():
+        """The running mask and whether any lane runs (the loop's read)."""
         run = s.status == RUNNING
         if on_chunk is not None and chunked:
             going, nc_lo = host_sync.any_true_and_min(
-                run, torch.where(run, s.nc, chunks))
+                run, torch.where(run, s.nc, chunks), "bdf.loop")
             on_chunk(nc_lo)
-            if not going:
-                break
-        elif not host_sync.any_true(run):
-            break
-        step_attempt(run)
-        if chunked:
-            chunk_transition()
+            return run, going
+        return run, host_sync.any_true(run, "bdf.loop")
+
+    # a step's span ends with the read that decides whether another runs
+    run, going = running()
+    while going:
+        with span("bdf.step"):
+            step_attempt(run)
+            if chunked:
+                chunk_transition()
+            run, going = running()
 
     if chunked:
         # the last chunk (or the one a failed lane died in) is still local

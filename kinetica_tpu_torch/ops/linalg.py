@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span, spanned
 from . import host_sync
 from .gj_inverse import MAX_SCHUR_N, schur_inverse
 from .jvp import has_tangent, inverse_tangent
@@ -52,6 +53,13 @@ MAX_REFINE = 4         # sweep limit of the adaptive "inv_fused" solve
 INV_METHODS = ("inv", "inv_gated", "inv_fused")
 EPS32 = 1.2e-7
 _gated = True          # the phase-2 gate of ``newton_schulz_refine``
+
+# since the last reset: the factor builds that rebuilt a lane (every
+# :func:`newton_factor` call that built one), the lanes they built, and the
+# batch's Newton-Schulz sweeps (cheap and accurate)
+factor_builds = 0
+factor_lanes = 0
+refine_sweeps = 0
 
 
 def resolve_linsolve(method: str, ns: int) -> str:
@@ -106,6 +114,7 @@ def _residual_f64(A32: torch.Tensor, M32: torch.Tensor) -> torch.Tensor:
     return (eye - A32.double() @ M32.double()).to(torch.float32)
 
 
+@spanned("linalg.refine")
 def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
     """Refine approximate f32 inverses ``minv`` of ``A32`` where needed.
 
@@ -125,6 +134,7 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
 
     Returns ``(minv, rn)``, rn the last (or predicted) residual per lane.
     """
+    global refine_sweeps
     tol = NS_TOL
     B, n, _ = A32.shape
     dev = A32.device
@@ -133,8 +143,9 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
     inf = torch.full((B,), float("inf"), dtype=f32, device=dev)
     need = EPS32 * _rnorm(minv) > NS_PROXY_TOL
     rn_cheap = inf
-    if host_sync.any_true(need):
+    if host_sync.any_true(need, "linalg.refine_cheap"):
         active = need
+        refine_sweeps += 3
         for _ in range(3):
             R = eye - A32 @ minv
             rn = _rnorm(R)
@@ -154,8 +165,9 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
     rn = torch.where(need, inf, torch.zeros_like(inf))
     for _ in range(NS_MAX_SWEEPS):
         active = rn > thresh
-        if not host_sync.any_true(active):
+        if not host_sync.any_true(active, "linalg.refine_accurate"):
             break
+        refine_sweeps += 1
         R = _residual_f64(A32, minv)
         rn_new = _rnorm(R)
         do = active & (rn_new > tol)
@@ -262,6 +274,7 @@ def newton_factor(J: torch.Tensor, c: torch.Tensor,
     factor. "lu": f64 LU factors of A
     (``torch.linalg``), an explicit cross-check option only.
     """
+    global factor_builds, factor_lanes
     B, n, _ = J.shape
     if lu_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"lu_dtype must be torch.float32 or torch.float64, "
@@ -270,26 +283,36 @@ def newton_factor(J: torch.Tensor, c: torch.Tensor,
         if lu_dtype != torch.float32:
             raise ValueError(f"linsolve {method!r} builds an f32 inverse; "
                              f"an {lu_dtype} factor needs method='lu'")
-        if need is None:
-            lu = _inv_factor(_newton_matrix(J, c))
+    elif method != "lu":
+        raise ValueError(f"unknown linsolve {method!r}")
+    with span("linalg.factor") as sp:
+        lanes = B
+        if method == "lu":
+            # every lane is factored; ``need`` picks the ones kept
+            A = _newton_matrix(J, c).double()
+            lu, piv = torch.linalg.lu_factor(A)
+            if need is not None and prev is not None:
+                keep = ~need[:, None, None]
+                lu = torch.where(keep, prev.lu, lu)
+                piv = torch.where(keep[:, :, 0], prev.piv, piv)
         else:
-            lu = (prev.lu.clone() if prev is not None else
-                  torch.zeros(B, n, n, dtype=torch.float32, device=J.device))
-            idx = host_sync.true_indices(need)
-            if idx.numel():
-                A = _newton_matrix(J[idx], c[idx])
-                lu.index_copy_(0, idx, _inv_factor(A))
-        piv = torch.zeros(B, 0, dtype=torch.int32, device=J.device)
-        return NewtonFactors(lu=lu, piv=piv, J=J, c=c)
-    if method == "lu":
-        A = _newton_matrix(J, c).double()
-        lu, piv = torch.linalg.lu_factor(A)
-        if need is not None and prev is not None:
-            keep = ~need[:, None, None]
-            lu = torch.where(keep, prev.lu, lu)
-            piv = torch.where(keep[:, :, 0], prev.piv, piv)
-        return NewtonFactors(lu=lu, piv=piv, J=J, c=c)
-    raise ValueError(f"unknown linsolve {method!r}")
+            if need is None:
+                lu = _inv_factor(_newton_matrix(J, c))
+            else:
+                lu = (prev.lu.clone() if prev is not None else
+                      torch.zeros(B, n, n, dtype=torch.float32,
+                                  device=J.device))
+                idx = host_sync.true_indices(need, "linalg.factor_gate")
+                lanes = idx.numel()
+                if lanes:
+                    A = _newton_matrix(J[idx], c[idx])
+                    lu.index_copy_(0, idx, _inv_factor(A))
+            piv = torch.zeros(B, 0, dtype=torch.int32, device=J.device)
+        if lanes:
+            factor_builds += 1
+            factor_lanes += lanes
+        sp.note(lanes=lanes)
+    return NewtonFactors(lu=lu, piv=piv, J=J, c=c)
 
 
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

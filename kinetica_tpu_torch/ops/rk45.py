@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from . import host_sync
 
 RUNNING, DONE, FAIL_MAX_STEPS, FAIL_H_UNDERFLOW = 0, 1, -1, -2
@@ -79,6 +80,7 @@ def _adapt(fn: Callable, args) -> Callable:
     return lambda t, y, t_start: fn(t, y)
 
 
+@spanned("rk45.solve")
 def rk45_solve(rhs: Callable, y0: torch.Tensor, t0: float, tf: float, saveat,
                rtol=1e-6, atol=1e-9, stops=None, max_steps: int = 100000,
                first_step=None, nonnegative: bool = False,
@@ -144,7 +146,7 @@ def rk45_solve(rhs: Callable, y0: torch.Tensor, t0: float, tf: float, saveat,
 
     while True:
         run = status == RUNNING
-        if not host_sync.any_true(run):
+        if not host_sync.any_true(run, "rk45.loop"):
             break
         h_min = t.abs() * eps * 10 + tiny * 1e4
         sp = torch.clamp(stop_ptr, max=n_stops - 1)

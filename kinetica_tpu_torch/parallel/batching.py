@@ -15,6 +15,10 @@ with lane compaction, and the mesh-sharded solve.
   :func:`~kinetica_tpu_torch.solving.methods.solve_network` does.
 * ``pars.progress`` logs the chunks every lane has finished, after every
   ``chunks_per_dispatch`` of them, from the loop's existing reads.
+* The call's phases are spans of :mod:`kinetica_tpu_torch.utils.profiling`:
+  ``ensemble.solve`` (the call), ``ensemble.prepare`` (inputs to the
+  device), ``ensemble.attempt`` (each pass of the retry loop, attr
+  ``lanes``) and ``ensemble.collect`` (the solution).
 * ``nr_multiple`` pads the reaction axis with inert reactions (zero
   stoichiometry, zero rate) to a multiple; with a ``"model"`` mesh to a
   multiple of the model axis too.
@@ -64,6 +68,7 @@ from ..solving.solutions import EnsembleSolution, retcode_from_status
 from ..solving.solve_utils import (calculate_discrete_rates, make_u0,
                                    resolve_chunks_per_dispatch)
 from ..utils.logging import logger
+from ..utils.profiling import span, spanned
 from .sharding import (Mesh, Placement, all_reduce_sum, ensemble_shardings,
                        gather_members)
 
@@ -314,6 +319,7 @@ class EnsembleProblem:
         return (res.status.cpu().numpy(), res.ys.cpu().numpy(),
                 {k: getattr(res, k).cpu().numpy() for k in LANE_STATS})
 
+    @spanned("ensemble.solve")
     def solve(self, conditions_list: list[ConditionSet] | None = None,
               u0s: np.ndarray | None = None, sharding=None,
               k_tables: np.ndarray | None = None,
@@ -334,68 +340,69 @@ class EnsembleProblem:
         ``replicated``). Every rank of the mesh calls ``solve`` with the
         same arguments and receives the whole solution.
         """
-        pars = self.pars
-        calc = self.method.calculator
-        f64 = dict(dtype=torch.float64, device=self.device)
-        fst = dict(dtype=self.dtype, device=self.device)
-        if self.rate_mode == "continuous":
-            if k_tables is not None or tstops is not None:
-                raise ValueError("k_tables/tstops are discrete-mode inputs")
-            if conditions_list is None:
-                conditions_list = [self.method.conditions]
-            thetas, member_stops = build_condition_sweep_theta(
-                conditions_list, self.method.conditions)
-            B = member_stops.shape[0]
-            payload = {sym: torch.as_tensor(v, **f64)
-                       for sym, v in thetas.items()}
-            rows = [_chunk_local_stops(member_stops[b], self.n_chunks,
-                                       self.chunkstep) for b in range(B)]
-            m_max = max(r.shape[1] for r in rows)
-            stops_np = np.full((B, self.n_chunks, m_max), np.inf)
-            for b, r in enumerate(rows):
-                stops_np[b, :, :r.shape[1]] = r
-            stops_rows = torch.as_tensor(stops_np, **f64)
-        else:
-            if k_tables is None:
+        with span("ensemble.prepare"):
+            pars = self.pars
+            calc = self.method.calculator
+            f64 = dict(dtype=torch.float64, device=self.device)
+            fst = dict(dtype=self.dtype, device=self.device)
+            if self.rate_mode == "continuous":
+                if k_tables is not None or tstops is not None:
+                    raise ValueError("k_tables/tstops are discrete-mode inputs")
                 if conditions_list is None:
-                    self.method.conditions.solve_variable_conditions(pars)
-                    tstops, k_table = calculate_discrete_rates(
-                        self.method.conditions, calc, self.rd.nr)
-                    k_tables = k_table[None]
-                else:
-                    tstops, k_tables = build_condition_sweep(
-                        conditions_list, calc, self.rd.nr, pars)
-            elif tstops is None:
-                raise ValueError("k_tables needs the tstops it is tabulated on")
-            B = k_tables.shape[0]
-
-        if u0s is None:
-            u0s = np.broadcast_to(make_u0(self.sd, pars), (B, self.sd.n))
-        elif u0s.shape[0] != B:
-            if B != 1:
-                raise ValueError("u0s and condition batch sizes do not match")
-            B = u0s.shape[0]
-            if self.rate_mode == "discrete":
-                k_tables = np.broadcast_to(k_tables, (B,) + k_tables.shape[1:])
+                    conditions_list = [self.method.conditions]
+                thetas, member_stops = build_condition_sweep_theta(
+                    conditions_list, self.method.conditions)
+                B = member_stops.shape[0]
+                payload = {sym: torch.as_tensor(v, **f64)
+                           for sym, v in thetas.items()}
+                rows = [_chunk_local_stops(member_stops[b], self.n_chunks,
+                                           self.chunkstep) for b in range(B)]
+                m_max = max(r.shape[1] for r in rows)
+                stops_np = np.full((B, self.n_chunks, m_max), np.inf)
+                for b, r in enumerate(rows):
+                    stops_np[b, :, :r.shape[1]] = r
+                stops_rows = torch.as_tensor(stops_np, **f64)
             else:
-                payload = {k: v.expand(B, -1) for k, v in payload.items()}
-                stops_rows = stops_rows.expand(B, -1, -1)
-        plan = self._plan(sharding, B)
-        mesh, axis, model = plan or (None, None, False)
-        if self.rate_mode == "discrete":
-            # stops are shared by the members; the k tables reach the
-            # device in one copy per solve, padded to the padded reaction
-            # axis and, in a model-sharded solve, cut to this rank's block
-            stops_rows = torch.as_tensor(
-                _chunk_local_stops(tstops, self.n_chunks, self.chunkstep), **f64)
-            k_tables = np.asarray(k_tables)
-            if self._nr_pad:
-                k_tables = np.pad(k_tables, ((0, 0), (0, 0), (0, self._nr_pad)))
-            if model:
-                k_tables = k_tables[:, :, self.block[0]:self.block[1]]
-            payload = (torch.as_tensor(np.asarray(tstops), **f64),
-                       torch.as_tensor(np.ascontiguousarray(k_tables), **fst))
-        u0s_t = torch.as_tensor(np.array(u0s, dtype=np.float64), **fst)
+                if k_tables is None:
+                    if conditions_list is None:
+                        self.method.conditions.solve_variable_conditions(pars)
+                        tstops, k_table = calculate_discrete_rates(
+                            self.method.conditions, calc, self.rd.nr)
+                        k_tables = k_table[None]
+                    else:
+                        tstops, k_tables = build_condition_sweep(
+                            conditions_list, calc, self.rd.nr, pars)
+                elif tstops is None:
+                    raise ValueError("k_tables needs the tstops it is tabulated on")
+                B = k_tables.shape[0]
+
+            if u0s is None:
+                u0s = np.broadcast_to(make_u0(self.sd, pars), (B, self.sd.n))
+            elif u0s.shape[0] != B:
+                if B != 1:
+                    raise ValueError("u0s and condition batch sizes do not match")
+                B = u0s.shape[0]
+                if self.rate_mode == "discrete":
+                    k_tables = np.broadcast_to(k_tables, (B,) + k_tables.shape[1:])
+                else:
+                    payload = {k: v.expand(B, -1) for k, v in payload.items()}
+                    stops_rows = stops_rows.expand(B, -1, -1)
+            plan = self._plan(sharding, B)
+            mesh, axis, model = plan or (None, None, False)
+            if self.rate_mode == "discrete":
+                # stops are shared by the members; the k tables reach the
+                # device in one copy per solve, padded to the padded reaction
+                # axis and, in a model-sharded solve, cut to this rank's block
+                stops_rows = torch.as_tensor(
+                    _chunk_local_stops(tstops, self.n_chunks, self.chunkstep), **f64)
+                k_tables = np.asarray(k_tables)
+                if self._nr_pad:
+                    k_tables = np.pad(k_tables, ((0, 0), (0, 0), (0, self._nr_pad)))
+                if model:
+                    k_tables = k_tables[:, :, self.block[0]:self.block[1]]
+                payload = (torch.as_tensor(np.asarray(tstops), **f64),
+                           torch.as_tensor(np.ascontiguousarray(k_tables), **fst))
+            u0s_t = torch.as_tensor(np.array(u0s, dtype=np.float64), **fst)
 
         logger.info(" - Solving %d-member ensemble (%d chunks each, %s/%s "
                     "mode) on %s%s...", B, self.n_chunks, self.chunk_mode,
@@ -415,71 +422,74 @@ class EnsembleProblem:
         spread = None if mesh is None else 0.0
         self.last_retry_batch = None
         while True:
-            attempts += 1
-            if statuses is None:
-                idx = np.arange(B)
-            else:
-                lanes = np.flatnonzero(statuses != bdf.DONE)
-                Br = self._retry_batch_size(lanes.size, B, multiple)
-                idx = np.concatenate(
-                    [lanes, np.full(Br - lanes.size, lanes[0], lanes.dtype)])
-                self.last_retry_batch = int(Br)
-            new_st, new_ys, new_stats, new_spread = self._solve_lanes(
-                plan, idx, statuses is None, u0s_t, payload, stops_rows,
-                abstol_v, reltol_v)
-            if spread is not None:
-                spread = max(spread, new_spread)
-            if statuses is None:
-                statuses, ys, lane_stats = (np.array(new_st), np.array(new_ys),
-                                            new_stats)
-            else:
-                statuses[lanes] = new_st[:lanes.size]
-                for k, v in lane_stats.items():
-                    v[lanes] = new_stats[k][:lanes.size]
-                ys[lanes] = new_ys[:lanes.size]
-            failed = statuses != bdf.DONE
-            if not failed.any() or not pars.adaptive_tols:
-                break
-            if attempts >= 5:
-                logger.error(" - Too many attempts have been made to reduce "
-                             "solver tolerance for %d ensemble member(s).",
-                             int(failed.sum()))
-                break
-            if ((abstol_v[failed] / 10 <= mintol).any()
-                    or (reltol_v[failed] / 10 <= mintol).any()):
-                logger.error(" - Failed ensemble member(s) cannot be converged "
-                             "by reducing solver tolerance any further.")
-                break
-            abstol_v[failed] /= 10
-            reltol_v[failed] /= 10
-            logger.warning("   - %d ensemble member(s) failed; retrying with "
-                           "tolerances tightened to abstol = %g reltol = %g",
-                           int(failed.sum()), abstol_v[failed].min(),
-                           reltol_v[failed].min())
-        m = len(self.saveat_local)
-        ys = ys.reshape(B, self.n_chunks * m, -1)
-        ys = np.concatenate([np.asarray(u0s)[:, None, :], ys], axis=1)
-        ts = np.concatenate([
-            [0.0],
-            (np.arange(self.n_chunks)[:, None] * self.chunkstep
-             + self.saveat_local[None, :]).ravel()])
+            with span("ensemble.attempt") as sp:
+                attempts += 1
+                if statuses is None:
+                    idx = np.arange(B)
+                else:
+                    lanes = np.flatnonzero(statuses != bdf.DONE)
+                    Br = self._retry_batch_size(lanes.size, B, multiple)
+                    idx = np.concatenate(
+                        [lanes, np.full(Br - lanes.size, lanes[0], lanes.dtype)])
+                    self.last_retry_batch = int(Br)
+                sp.note(lanes=int(idx.size))
+                new_st, new_ys, new_stats, new_spread = self._solve_lanes(
+                    plan, idx, statuses is None, u0s_t, payload, stops_rows,
+                    abstol_v, reltol_v)
+                if spread is not None:
+                    spread = max(spread, new_spread)
+                if statuses is None:
+                    statuses, ys, lane_stats = (np.array(new_st), np.array(new_ys),
+                                                new_stats)
+                else:
+                    statuses[lanes] = new_st[:lanes.size]
+                    for k, v in lane_stats.items():
+                        v[lanes] = new_stats[k][:lanes.size]
+                    ys[lanes] = new_ys[:lanes.size]
+                failed = statuses != bdf.DONE
+                if not failed.any() or not pars.adaptive_tols:
+                    break
+                if attempts >= 5:
+                    logger.error(" - Too many attempts have been made to reduce "
+                                 "solver tolerance for %d ensemble member(s).",
+                                 int(failed.sum()))
+                    break
+                if ((abstol_v[failed] / 10 <= mintol).any()
+                        or (reltol_v[failed] / 10 <= mintol).any()):
+                    logger.error(" - Failed ensemble member(s) cannot be converged "
+                                 "by reducing solver tolerance any further.")
+                    break
+                abstol_v[failed] /= 10
+                reltol_v[failed] /= 10
+                logger.warning("   - %d ensemble member(s) failed; retrying with "
+                               "tolerances tightened to abstol = %g reltol = %g",
+                               int(failed.sum()), abstol_v[failed].min(),
+                               reltol_v[failed].min())
+        with span("ensemble.collect"):
+            m = len(self.saveat_local)
+            ys = ys.reshape(B, self.n_chunks * m, -1)
+            ys = np.concatenate([np.asarray(u0s)[:, None, :], ys], axis=1)
+            ts = np.concatenate([
+                [0.0],
+                (np.arange(self.n_chunks)[:, None] * self.chunkstep
+                 + self.saveat_local[None, :]).ravel()])
 
-        vcs = {}
-        if conditions_list is not None:
-            for sym in conditions_list[0].symbols:
-                if conditions_list[0].get_profile(sym).is_variable:
-                    vcs[sym] = np.stack([
-                        cs.get_profile(sym).value(ts).cpu().numpy()
-                        for cs in conditions_list])
+            vcs = {}
+            if conditions_list is not None:
+                for sym in conditions_list[0].symbols:
+                    if conditions_list[0].get_profile(sym).is_variable:
+                        vcs[sym] = np.stack([
+                            cs.get_profile(sym).value(ts).cpu().numpy()
+                            for cs in conditions_list])
 
-        return EnsembleSolution(
-            t=ts, u=ys,
-            retcodes=[retcode_from_status(s) for s in statuses],
-            vcs=vcs, stats={"n_chunks": self.n_chunks, "batch": B,
-                            "attempts": attempts,
-                            "retry_batch": self.last_retry_batch,
-                            "abstol": abstol_v, "reltol": reltol_v,
-                            "rank_spread": spread, **lane_stats})
+            return EnsembleSolution(
+                t=ts, u=ys,
+                retcodes=[retcode_from_status(s) for s in statuses],
+                vcs=vcs, stats={"n_chunks": self.n_chunks, "batch": B,
+                                "attempts": attempts,
+                                "retry_batch": self.last_retry_batch,
+                                "abstol": abstol_v, "reltol": reltol_v,
+                                "rank_spread": spread, **lane_stats})
 
     def _plan(self, sharding, B):
         """``(mesh, member axis or None, model-sharded)`` of a ``solve``'s

@@ -18,10 +18,14 @@ batch of one lane of the batched BDF (:mod:`kinetica_tpu_torch.ops.bdf`).
 * ``pars.solver="rk45"`` integrates with the explicit Dormand-Prince
   solver (:mod:`kinetica_tpu_torch.ops.rk45`), the rate lookup folded
   into every stage.
-* With :class:`~kinetica_tpu_torch.utils.profiling.Timings` enabled, the
-  reference's host sections are timed: ``solve.calculator_setup``,
-  ``solve.rate_precalc`` (discrete rates) and ``solve.chunk_dispatch``
-  (each group of ``chunks_per_dispatch`` chunks).
+* The entry's phases are spans of
+  :mod:`~kinetica_tpu_torch.utils.profiling`: ``solve.network`` (the
+  call), ``solve.setup`` (up to the solve), ``solve.chunk`` (one chunk's
+  integration) and the reference's host sections
+  ``solve.calculator_setup``, ``solve.rate_precalc`` (discrete rates) and
+  ``solve.chunk_dispatch`` (each group of ``chunks_per_dispatch``
+  chunks), timed with :class:`~kinetica_tpu_torch.utils.profiling.Timings`
+  enabled.
 
 The port resolves the reference's "auto" choices to its accelerator
 algorithm on every device: the RHS of an f64 network goes through the
@@ -52,7 +56,7 @@ from ..ops.interp import left_constant_lookup
 from ..ops.linalg import lu_precision_dtype, resolve_linsolve
 from ..utils.interpolation import TimeSeries
 from ..utils.logging import logger
-from ..utils.profiling import timed
+from ..utils.profiling import span, spanned, timed
 from ..utils.time_units import create_savepoints
 from .filters import RxFilter
 from .params import ODESimulationParams
@@ -439,11 +443,12 @@ def _run_chunkwise(rhs, jac, u0, pars: ODESimulationParams,
             hi = min(lo + group, n_chunks)
             with timed("solve.chunk_dispatch"):
                 for nc in range(lo, hi):
-                    status, ys, u, st = _integrate(
-                        pars, rhs, jac, u, 0.0, chunkstep, saveat_local,
-                        reltol, abstol, stops_rows[nc],
-                        (nc * chunkstep, args_payload), first_step=h,
-                        prepare=prepare, warm_start=warm)
+                    with span("solve.chunk"):
+                        status, ys, u, st = _integrate(
+                            pars, rhs, jac, u, 0.0, chunkstep, saveat_local,
+                            reltol, abstol, stops_rows[nc],
+                            (nc * chunkstep, args_payload), first_step=h,
+                            prepare=prepare, warm_start=warm)
                     worst = min(worst, status)
                     for k in STAT_KEYS:
                         acc[k] += st[k]
@@ -475,6 +480,7 @@ def _run_chunkwise(rhs, jac, u0, pars: ODESimulationParams,
 # solve_network — the public entry point (methods.jl:86-130, 330-360)
 # ---------------------------------------------------------------------------
 
+@spanned("solve.network")
 def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
                   copy_network: bool = True, return_integrator: bool = False,
                   device=DEFAULT_DEVICE):
@@ -496,74 +502,75 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
     f64 = dict(dtype=torch.float64, device=device)
     fst = dict(dtype=dtype, device=device)
 
-    if copy_network:
-        sd_active, rd_active = sd.copy(), rd.copy()
-    else:
-        sd_active, rd_active = sd, rd
+    with span("solve.setup"):
+        if copy_network:
+            sd_active, rd_active = sd.copy(), rd.copy()
+        else:
+            sd_active, rd_active = sd, rd
 
-    is_variable = isinstance(method, VariableODESolve)
-    if is_variable:
-        logger.info(" - Calculating variable condition profiles.")
-        conditions.solve_variable_conditions(pars)
+        is_variable = isinstance(method, VariableODESolve)
+        if is_variable:
+            logger.info(" - Calculating variable condition profiles.")
+            conditions.solve_variable_conditions(pars)
 
-    logger.info(" - Filtering reactions...")
-    mask = method.filter.get_filter_mask(sd_active, rd_active)
-    filtered_ids = list(np.flatnonzero(mask))
-    rd_active.splice(filtered_ids)
-    # the reference splices the calculator's per-reaction parameters too
-    if filtered_ids:
-        calc.splice(filtered_ids)
-    logger.info("   - Removed %d filtered reactions from network", int(mask.sum()))
+        logger.info(" - Filtering reactions...")
+        mask = method.filter.get_filter_mask(sd_active, rd_active)
+        filtered_ids = list(np.flatnonzero(mask))
+        rd_active.splice(filtered_ids)
+        # the reference splices the calculator's per-reaction parameters too
+        if filtered_ids:
+            calc.splice(filtered_ids)
+        logger.info("   - Removed %d filtered reactions from network", int(mask.sum()))
 
-    logger.info(" - Performing calculator-specific network setup.")
-    with timed("solve.calculator_setup"):
-        calc.setup_network(sd_active, rd_active)
+        logger.info(" - Performing calculator-specific network setup.")
+        with timed("solve.calculator_setup"):
+            calc.setup_network(sd_active, rd_active)
 
-    logger.info(" - Removing low-rate reactions")
-    apply_low_k_cutoff(rd_active, calc, pars, conditions)
+        logger.info(" - Removing low-rate reactions")
+        apply_low_k_cutoff(rd_active, calc, pars, conditions)
 
-    if rd_active.nr == 0:
-        raise ValueError(
-            "CRN has no reactions after filtering/setup/low-k cutoff; "
-            "nothing to solve. Check the filter masks, low_k_cutoff and "
-            "(for explored networks) the max_molecularity ingestion limit.")
+        if rd_active.nr == 0:
+            raise ValueError(
+                "CRN has no reactions after filtering/setup/low-k cutoff; "
+                "nothing to solve. Check the filter masks, low_k_cutoff and "
+                "(for explored networks) the max_molecularity ingestion limit.")
 
-    _check_lu_precision(pars, sd_active.n)
-    net = build_mass_action(rd_active, sd_active.n, device=device,
-                            dtype=dtype, clip_delta=resolve_clip_delta(pars))
-    jdt = _jac_dtype(pars)
-    jac_net = net.to_dtype(jdt) if jdt != dtype else None
-    u0 = torch.as_tensor(make_u0(sd_active, pars), **fst)[None]
+        _check_lu_precision(pars, sd_active.n)
+        net = build_mass_action(rd_active, sd_active.n, device=device,
+                                dtype=dtype, clip_delta=resolve_clip_delta(pars))
+        jdt = _jac_dtype(pars)
+        jac_net = net.to_dtype(jdt) if jdt != dtype else None
+        u0 = torch.as_tensor(make_u0(sd_active, pars), **fst)[None]
 
-    update_mode = ("discrete" if (is_variable and conditions.discrete_updates)
-                   else ("continuous" if is_variable else "static"))
-    contraction = _resolve_contraction(net, pars)
+        update_mode = ("discrete" if (is_variable and conditions.discrete_updates)
+                       else ("continuous" if is_variable else "static"))
+        contraction = _resolve_contraction(net, pars)
 
-    # --- rate specification ---
-    k_series = None
-    k_fn = None
-    if update_mode == "static":
-        payload = torch.as_tensor(get_initial_rates(conditions, calc),
-                                  **fst)[None].contiguous()
-        global_stops = None
-    elif update_mode == "discrete":
-        logger.info(" - Pre-calculating rate constants at discrete time intervals.")
-        with timed("solve.rate_precalc"):
-            tstops, k_table = calculate_discrete_rates(conditions, calc,
-                                                       rd_active.nr)
-        # one host-to-device copy of the table per solve
-        payload = (torch.as_tensor(tstops, **f64),
-                   torch.as_tensor(k_table, **fst))
-        global_stops = tstops
-        k_series = TimeSeries(tstops, k_table)
-    else:
-        k_fn = _make_continuous_k_fn(conditions, calc)
-        payload = None
-        global_stops = np.asarray(conditions.get_tstops())
-    rhs, jac, prepare = _make_rhs_jac(net, update_mode, k_fn=k_fn,
-                                      jac_net=jac_net, contraction=contraction,
-                                      analytic_jac=pars.jac,
-                                      jac_form=_resolve_jac_form(pars))
+        # --- rate specification ---
+        k_series = None
+        k_fn = None
+        if update_mode == "static":
+            payload = torch.as_tensor(get_initial_rates(conditions, calc),
+                                      **fst)[None].contiguous()
+            global_stops = None
+        elif update_mode == "discrete":
+            logger.info(" - Pre-calculating rate constants at discrete time intervals.")
+            with timed("solve.rate_precalc"):
+                tstops, k_table = calculate_discrete_rates(conditions, calc,
+                                                           rd_active.nr)
+            # one host-to-device copy of the table per solve
+            payload = (torch.as_tensor(tstops, **f64),
+                       torch.as_tensor(k_table, **fst))
+            global_stops = tstops
+            k_series = TimeSeries(tstops, k_table)
+        else:
+            k_fn = _make_continuous_k_fn(conditions, calc)
+            payload = None
+            global_stops = np.asarray(conditions.get_tstops())
+        rhs, jac, prepare = _make_rhs_jac(net, update_mode, k_fn=k_fn,
+                                          jac_net=jac_net, contraction=contraction,
+                                          analytic_jac=pars.jac,
+                                          jac_form=_resolve_jac_form(pars))
 
     if return_integrator:
         logger.info(" - Returning integrator early.")
