@@ -33,16 +33,28 @@ left, whether J needs a refresh) go through
 :mod:`kinetica_tpu_torch.ops.host_sync`, which counts them. The rest of a
 step is branch-free tensor arithmetic on all lanes.
 
+The step's tail (:func:`_step_tail`: the error test, step-size and order
+control, dense output, the state merge and the chunk transition) reads
+nothing back to the host and its shapes are fixed within a solve. On a
+CUDA device it is captured once per :func:`tail_key` into a CUDA graph
+(:class:`_TailGraph`) and replayed at every step, the same kernels in the
+same order, so the host launches one graph in place of a few hundred
+small kernels; :func:`graph_refusal` says when the eager path runs
+instead (the CPU, forward-mode tangents, inputs that require grad).
+
 Its phases are spans of :mod:`kinetica_tpu_torch.utils.profiling`
 (``bdf.solve``, ``bdf.init``, ``bdf.step``, ``bdf.predict``,
 ``bdf.newton``, ``bdf.newton_iter``, ``bdf.jac_refresh``,
-``bdf.control``, ``bdf.chunk_transition``), and ``newton_iters`` counts
-the batch's Newton iterations.
+``bdf.control``, ``bdf.chunk_transition``; ``bdf.tail`` around a
+graph's input copies and replay), and ``newton_iters`` counts the
+batch's Newton iterations, ``tail_replays`` the steps whose tail ran
+from a graph and ``tail_captures`` the graphs captured.
 
 Not ported: the in-carry debug trace.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, NamedTuple
 
 import torch
@@ -50,6 +62,7 @@ import torch
 from ..precision import assert_precision_policy
 from ..utils.profiling import span, spanned
 from . import host_sync
+from .jvp import has_tangent
 from .linalg import (NewtonFactors, lu_precision_dtype, newton_factor,
                      newton_solve, resolve_linsolve)
 
@@ -60,10 +73,23 @@ MAX_FACTOR = 10.0
 _NOISE_ACCEPT = 0.03  # scaled-units Newton noise-floor acceptance threshold
 
 # since the last reset (a run reports them): the batch's stale-J
-# refreshes, and its Newton iterations (each runs the RHS and the Newton
-# solve on every lane)
+# refreshes, its Newton iterations (each runs the RHS and the Newton
+# solve on every lane), the steps whose tail ran from a CUDA graph, and
+# the graphs captured
 jac_refreshes = 0
 newton_iters = 0
+tail_replays = 0
+tail_captures = 0
+
+# the captured tails by key, least recently used first: at most
+# MAX_TAIL_GRAPHS of them and MAX_TAIL_BYTES of static state (a graph's
+# pool of intermediates scales with it), the newest kept whatever its size
+MAX_TAIL_GRAPHS = 4
+MAX_TAIL_BYTES = 256 << 20
+_tail_graphs: OrderedDict = OrderedDict()
+# one capture stream a device, for every capture: cuBLAS keeps a workspace
+# for each stream it runs on, for the life of the process
+_capture_streams: dict = {}
 
 # Status codes
 RUNNING = 0
@@ -194,6 +220,405 @@ class _State:
             old = getattr(self, k)
             m = mask.reshape(mask.shape + (1,) * (old.ndim - 1))
             setattr(self, k, torch.where(m, v, old))
+
+
+# the state's factor fields: the step merges them eagerly, as the tail
+# reads none of them
+_FACTORS = ("lu", "piv", "J")
+
+
+class _Solve(NamedTuple):
+    """What the step's tail reads that one solve fixes: its Python values,
+    its tensors (``atol``, ``rtol``, ``saveat``, ``row_ptr0``), and
+    constants of its shapes."""
+    tf: float
+    t0: float
+    tol_t: float
+    max_steps: int
+    nonnegative: bool
+    nonnegative_project: bool
+    chunks: int | None        # None: not chunked
+    n_row: int                # stops a chunk's row holds (chunked)
+    save_ptr0: int
+    atol: torch.Tensor        # (B,), state dtype
+    rtol: torch.Tensor
+    saveat: torch.Tensor      # (n_save,), time dtype
+    row_ptr0: torch.Tensor | None  # (B, chunks): each chunk's first stop
+    error_const32: torch.Tensor
+    lanes: torch.Tensor
+    idx8: torch.Tensor
+    k5: torch.Tensor
+    jsave: torch.Tensor
+
+
+# the tensors of a solve, copied into a graph's static inputs at each
+# solve; the constants of its shapes, copied once
+_SOLVE_TENSORS = ("atol", "rtol", "saveat", "row_ptr0")
+_SHAPE_TENSORS = ("error_const32", "lanes", "idx8", "k5", "jsave")
+
+
+class _Step(NamedTuple):
+    """A step attempt's values that the tail reads, each (B, ...): the
+    predictor's, the factor's and the Newton iteration's."""
+    run: torch.Tensor
+    h_min: torch.Tensor
+    clamp: torch.Tensor
+    h: torch.Tensor
+    D: torch.Tensor
+    n_equal_steps: torch.Tensor
+    t_new: torch.Tensor
+    y_pred: torch.Tensor
+    next_stop: torch.Tensor
+    n_it: torch.Tensor
+    converged: torch.Tensor
+    d: torch.Tensor
+    y_new: torch.Tensor
+    refresh: torch.Tensor
+    current_jac: torch.Tensor
+    c_lu_next: torch.Tensor
+    n_jev: torch.Tensor
+    n_lu: torch.Tensor
+
+
+def tail_key(cx: _Solve, ns: int) -> tuple:
+    """The key of a captured tail: the shapes, the state dtype and the
+    device, and every Python value the tail reads. Solves that differ in
+    their tensors alone share a key."""
+    return (cx.atol.device, cx.atol.shape[0], ns, cx.saveat.shape[0],
+            cx.atol.dtype, cx.chunks, cx.tf, cx.t0, cx.tol_t, cx.max_steps,
+            cx.nonnegative, cx.nonnegative_project, cx.n_row, cx.save_ptr0)
+
+
+def graph_refusal(tensors) -> str | None:
+    """Why the step's tail of a solve whose initial state holds
+    ``tensors`` may not run from a CUDA graph, or None where it may. The
+    inputs (``y0``, ``args`` through ``rhs`` and ``prepare``,
+    ``first_step``, ``warm_start``) all reach the initial state, so a
+    tangent or a grad among them shows there. A graph's static buffers
+    would drop a forward-mode tangent and cut autograd's record, so
+    those solves run eagerly, as do solves off the card and inside
+    another capture."""
+    if has_tangent(*tensors):
+        return "a forward-mode tangent"
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        return "an input requires grad"
+    if not all(x.is_cuda for x in tensors):
+        return "not on a CUDA device"
+    with torch.cuda.device(tensors[0].device):
+        if torch.cuda.is_current_stream_capturing():
+            return "a capture is under way"
+    return None
+
+
+def _static_bytes(fields: dict) -> int:
+    """The bytes of the state's fields that a graph keeps static copies of."""
+    return sum(v.nbytes for k, v in fields.items() if k not in _FACTORS)
+
+
+def _tail_graph(key, nbytes: int) -> "_TailGraph | None":
+    """The cache's tail for ``key``, made if new, or None while a solve
+    holds it (a solve nested in another's callbacks runs eagerly). The
+    least recently used make room first, for a new tail of ``nbytes``
+    of static state."""
+    g = _tail_graphs.pop(key, None) or _TailGraph()
+    while _tail_graphs and (
+            len(_tail_graphs) >= MAX_TAIL_GRAPHS
+            or nbytes + sum(x.nbytes for x in _tail_graphs.values())
+            > MAX_TAIL_BYTES):
+        _tail_graphs.popitem(last=False)
+    _tail_graphs[key] = g
+    return None if g.bound else g
+
+
+class _TailGraph:
+    """The step's tail captured once for one :func:`tail_key` and replayed
+    at every step of every solve with that key.
+
+    It owns static copies of what the tail reads: the state's fields but
+    the factor's (``_FACTORS``), a step's values (:class:`_Step`) and a
+    solve's tensors (:class:`_Solve`). While a solve is bound, its state
+    lives in the static fields: the predictor and the Newton iteration
+    read them, and the graph's merge writes them. Captured at its first
+    replay, on the state's device, where it replays whatever device is
+    current."""
+
+    def __init__(self):
+        self.cx = self.state = self.step = self.run = self.graph = None
+        self.bound = False
+        self.nbytes = 0
+
+    def bind(self, s: _State, cx: _Solve) -> None:
+        """Start a solve: its tensors and initial state into the static
+        buffers, and its state object onto them."""
+        if self.cx is None:
+            self.cx = cx._replace(**{k: getattr(cx, k).clone()
+                                     for k in _SOLVE_TENSORS + _SHAPE_TENSORS
+                                     if getattr(cx, k) is not None})
+            self.state = {k: v.clone() for k, v in vars(s).items()
+                          if k not in _FACTORS}
+            self.nbytes = _static_bytes(self.state)
+        else:
+            for k in _SOLVE_TENSORS:
+                if getattr(cx, k) is not None:
+                    getattr(self.cx, k).copy_(getattr(cx, k))
+            for k, v in self.state.items():
+                v.copy_(getattr(s, k))
+        for k, v in self.state.items():
+            setattr(s, k, v)
+        self.bound = True
+
+    def unbind(self, s: _State) -> None:
+        """End a solve: its state object onto copies of the static fields,
+        which the next replay overwrites."""
+        for k, v in self.state.items():
+            setattr(s, k, v.clone())
+        self.bound = False
+
+    def replay(self, st: _Step) -> None:
+        """Run the tail of one step: its values into the static inputs,
+        then the graph (captured first if it is not yet)."""
+        global tail_replays, tail_captures
+        if self.step is None:
+            self.step = _Step(*(torch.empty_like(v) for v in st))
+        for dst, src in zip(self.step, st):
+            dst.copy_(src)
+        if self.run is None:
+            self._capture()
+            tail_captures += 1
+        self.run()
+        tail_replays += 1
+
+    def _tail(self) -> Callable[[], None]:
+        """The tail on the static buffers, merging into them in place."""
+        state, step, cx = self.state, self.step, self.cx
+
+        def tail():
+            s = _State(**state)
+            _step_tail(s, step, cx)
+            for k, v in state.items():
+                new = getattr(s, k)
+                if new is not v:
+                    v.copy_(new)
+        return tail
+
+    def _capture(self) -> None:
+        """Capture the tail into a CUDA graph; ``run`` replays it."""
+        dev = self.state["t"].device
+        tail = self._tail()
+        with torch.cuda.device(dev):
+            stream = _capture_streams.get(dev.index)
+            if stream is None:
+                stream = _capture_streams[dev.index] = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                # warm-up on the capture stream (cuBLAS's workspace); its
+                # merge rebinds a throwaway state, so the static fields stay
+                _step_tail(_State(**self.state), self.step, self.cx)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                tail()
+
+        def replay():
+            with torch.cuda.device(dev):
+                graph.replay()
+        self.graph, self.run = graph, replay
+
+
+def _safe_factor(factor, fallback):
+    ok = torch.isfinite(factor) & (factor > 0.0)
+    return torch.where(ok, factor, torch.full_like(factor, fallback))
+
+
+def _err_factor(err, inv_q):
+    base = torch.clamp(err, _TINY32 * 1e3, _MAX32 / 1e3)
+    f = base ** (-inv_q)
+    f = torch.where(err <= 0.0, torch.full_like(f, MAX_FACTOR), f)
+    return torch.where(torch.isfinite(err), f, torch.zeros_like(f))
+
+
+def _fill_saveat(cx: _Solve, t_new, h, order, D, save_ptr, ys):
+    """Dense output at the saveat points in (t_prev, t_new]."""
+    k5, saveat = cx.k5, cx.saveat
+    t_shift = t_new[:, None] - h[:, None] * k5
+    denom = h[:, None] * (1.0 + k5)
+    x = (saveat[None, :, None] - t_shift[:, None, :]) / denom[:, None, :]
+    p = torch.cumprod(x, dim=-1)
+    p = torch.where(k5[None, None, :] < order[:, None, None], p,
+                    torch.zeros_like(p))
+    yq = D[:, None, 0] + torch.einsum("bsk,bkn->bsn", p.to(D.dtype),
+                                      D[:, 1:MAX_ORDER + 1])
+    hit = ((cx.jsave[None, :] >= save_ptr[:, None])
+           & (saveat[None, :] <= (t_new + cx.tol_t)[:, None]))
+    return (save_ptr + hit.sum(dim=1),
+            torch.where(hit[:, :, None], yq, ys))
+
+
+def _dump_chunk(s: _State, mask, chunks: int) -> None:
+    """ys_all[b, nc[b]] = ys[b] on the lanes in ``mask``."""
+    sel = mask[:, None] & (torch.arange(chunks, device=mask.device)[None, :]
+                           == s.nc[:, None])
+    s.ys_all = torch.where(sel[:, :, None, None], s.ys[:, None], s.ys_all)
+
+
+def _step_tail(s: _State, st: _Step, cx: _Solve) -> None:
+    """The step's tail: the error test, order and step-size control, dense
+    output and the merge of the outcome into the running lanes' state,
+    then (chunked) the chunk transition. It reads no device value on the
+    host and its shapes are fixed by the key (:func:`tail_key`), so a CUDA
+    graph can hold it (:class:`_TailGraph`); called as it is, it is the
+    eager path."""
+    run, h, D, converged, d, y_new = (st.run, st.h, st.D, st.converged,
+                                      st.d, st.y_new)
+    clamp, refresh, n_it = st.clamp, st.refresh, st.n_it
+    n_equal_steps, t_new = st.n_equal_steps, st.t_new
+    t, h_pre, order = s.t, s.h, s.order
+    lanes, error_const32 = cx.lanes, cx.error_const32
+    rows = cx.idx8[None, :, None]
+    o3 = order[:, None, None]
+    with span("bdf.control"):
+        safety = (0.9 * (2 * NEWTON_MAXITER + 1)
+                  / (2 * NEWTON_MAXITER + n_it.to(F32)))
+
+        # --- error test (norms in f32, d in the state dtype) ---
+        scale_full = (cx.atol[:, None] + cx.rtol[:, None]
+                      * torch.clamp(y_new.abs(), max=1e37))
+        err_norm = _rms_norm(error_const32[order][:, None]
+                             * (d / scale_full).to(F32))
+        neg = (torch.full_like(converged, cx.nonnegative)
+               & (y_new.amin(dim=1) < 0.0))
+        accept = converged & (err_norm <= 1.0) & ~neg
+
+        # --- accept path: differences, dense output, order adaptation ---
+        n_eq_acc = n_equal_steps + 1
+        d_proj = (torch.clamp(y_new, min=0.0) - st.y_pred
+                  if cx.nonnegative_project else d)
+        selq = rows == (o3 + 1)
+        Dq1 = torch.where(selq, D, torch.zeros_like(D)).sum(dim=1)
+        D_mid = torch.where(selq, d_proj[:, None],
+                            torch.where(rows == o3 + 2, (d_proj - Dq1)[:, None],
+                                        D))
+        contrib = torch.where(rows <= o3 + 1, D_mid, torch.zeros_like(D_mid))
+        suffix = contrib.flip(1).cumsum(dim=1).flip(1)
+        D2 = torch.where(rows <= o3, suffix, D_mid)
+        save_ptr2, ys2 = _fill_saveat(cx, t_new, h, order, D2, s.save_ptr,
+                                      s.ys)
+        done = t_new >= cx.tf - cx.tol_t
+        hit_stop = (t_new - st.next_stop).abs() <= cx.tol_t
+
+        od = order.to(F32)
+        err_m = torch.where(
+            order > 1,
+            _rms_norm(error_const32[torch.clamp(order - 1, min=0)][:, None]
+                      * (D2[lanes, order] / scale_full).to(F32)),
+            torch.full_like(err_norm, float("inf")))
+        err_p = torch.where(
+            order < MAX_ORDER,
+            _rms_norm(error_const32[torch.clamp(order + 1, max=MAX_ORDER)][:, None]
+                      * (D2[lanes, order + 2] / scale_full).to(F32)),
+            torch.full_like(err_norm, float("inf")))
+        factors = torch.stack([_err_factor(err_m, 1.0 / od),
+                               _err_factor(err_norm, 1.0 / (od + 1)),
+                               _err_factor(err_p, 1.0 / (od + 2))], dim=1)
+        best = torch.argmax(factors, dim=1)
+        do_adapt = (n_eq_acc >= order + 1) & ~clamp
+        new_order = torch.where(do_adapt,
+                                torch.clamp(order + best - 1, 1, MAX_ORDER),
+                                order)
+        factor_acc = torch.where(
+            do_adapt,
+            torch.clamp(safety * factors[lanes, best], MIN_FACTOR, MAX_FACTOR),
+            torch.ones_like(safety))
+        factor_acc = _safe_factor(factor_acc, 1.0)
+        # hold h on the first accepted step after a Newton failure
+        factor_acc = torch.where(s.bruised, torch.clamp(factor_acc, max=1.0),
+                                 factor_acc)
+        # Newton-failure ceiling, relaxing x1.5 per accepted step
+        ncf_cap = torch.where(
+            torch.isfinite(s.h_ncf),
+            torch.clamp(torch.clamp(0.9 * s.h_ncf / h, max=1e30).to(F32),
+                        min=1.0),
+            torch.full_like(factor_acc, MAX_FACTOR))
+        factor_acc = torch.minimum(factor_acc, _safe_factor(ncf_cap, MAX_FACTOR))
+        # after a clamped step restore the pre-clamp h (overrides the caps)
+        factor_acc = torch.where(
+            clamp,
+            _safe_factor(torch.clamp(h_pre / h, max=MAX_FACTOR).to(F32), 1.0),
+            factor_acc)
+        rescale_acc = clamp | do_adapt
+
+        factor_rej = _safe_factor(
+            torch.clamp(safety * err_norm ** (-1.0 / (od + 1)), MIN_FACTOR, 1.0),
+            MIN_FACTOR)
+        factor_rej = torch.where(neg, torch.clamp(factor_rej, max=0.5),
+                                 factor_rej)
+
+        # outcome: accept | error-reject | jac-refresh | newton-fail
+        reject = converged & ~accept
+        nfail = ~converged & ~refresh
+        order_next = torch.where(accept, new_order, order)
+        factor = torch.where(
+            accept, factor_acc.to(h.dtype),
+            torch.where(reject, factor_rej.to(h.dtype),
+                        torch.where(nfail, torch.full_like(h, 0.5),
+                                    torch.ones_like(h))))
+        rescale = torch.where(accept, rescale_acc, reject | nfail)
+        D_base = torch.where(accept[:, None, None], D2, D)
+        D_next = torch.where(rescale[:, None, None],
+                             _change_D(D_base, order_next, factor), D_base)
+        h_next = torch.where(rescale, h * factor, h)
+        n_eq_next = torch.where(
+            accept, torch.where(rescale_acc, 0, n_eq_acc),
+            torch.where(refresh, n_equal_steps, 0))
+        t_next = torch.where(accept, t_new, t)
+        n_steps = s.n_steps + 1
+        status = torch.where(accept & done, DONE, s.status)
+        # NaN/inf in h or t never recovers: fail the lane at once
+        h_under = (h_next < st.h_min) | ~(torch.isfinite(h_next)
+                                          & torch.isfinite(t_next))
+        status = torch.where(
+            status == DONE, DONE,
+            torch.where(n_steps >= cx.max_steps, FAIL_MAX_STEPS,
+                        torch.where(h_under, FAIL_H_UNDERFLOW, RUNNING)))
+        s.merge(
+            run, t=t_next, h=h_next, order=order_next, D=D_next,
+            n_equal_steps=n_eq_next, c_lu=st.c_lu_next,
+            current_jac=st.current_jac & ~accept, status=status,
+            n_accepted=s.n_accepted + accept.long(),
+            n_rejected=s.n_rejected + (reject | nfail).long(),
+            save_ptr=torch.where(accept, save_ptr2, s.save_ptr),
+            ys=torch.where(accept[:, None, None], ys2, s.ys),
+            stop_ptr=torch.where(accept, s.stop_ptr + hit_stop.long(),
+                                 s.stop_ptr),
+            n_jev=st.n_jev, n_lu=st.n_lu, n_fev=s.n_fev + n_it,
+            n_steps=n_steps,
+            bruised=torch.where(accept, False, s.bruised | nfail),
+            h_ncf=torch.where(nfail & ~clamp, h,
+                              torch.where(accept, s.h_ncf * 1.5, s.h_ncf)))
+    if cx.chunks is not None:
+        _chunk_transition(s, cx)
+
+
+@spanned("bdf.chunk_transition")
+def _chunk_transition(s: _State, cx: _Solve) -> None:
+    """Lanes that finished a chunk (not the last) start the next one."""
+    chunks = cx.chunks
+    trans = (s.status == DONE) & (s.nc < chunks - 1)
+    _dump_chunk(s, trans, chunks)
+    nc2 = s.nc + 1
+    h2 = torch.clamp(s.h, max=cx.tf - cx.t0)
+    shrink = h2 < s.h
+    D2 = torch.where(shrink[:, None, None],
+                     _change_D(s.D, s.order,
+                               torch.where(shrink, h2 / s.h,
+                                           torch.ones_like(h2))), s.D)
+    stop_ptr2 = (nc2 * cx.n_row
+                 + cx.row_ptr0[cx.lanes, torch.clamp(nc2, max=chunks - 1)])
+    s.merge(trans, t=torch.full_like(s.t, cx.t0), h=h2, D=D2, nc=nc2,
+            ys=torch.zeros_like(s.ys),
+            save_ptr=torch.full_like(s.save_ptr, cx.save_ptr0),
+            stop_ptr=stop_ptr2, status=torch.full_like(s.status, RUNNING),
+            n_equal_steps=torch.where(shrink, 0, s.n_equal_steps))
 
 
 @spanned("bdf.solve")
@@ -443,34 +868,6 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         converged = converged | ((n_it > 0) & (dy_last < _NOISE_ACCEPT))
         return converged, n_it, y, d
 
-    def fill_saveat(t_new, h, order, D, save_ptr, ys):
-        """Dense output at the saveat points in (t_prev, t_new]."""
-        t_shift = t_new[:, None] - h[:, None] * k5
-        denom = h[:, None] * (1.0 + k5)
-        x = (saveat[None, :, None] - t_shift[:, None, :]) / denom[:, None, :]
-        p = torch.cumprod(x, dim=-1)
-        p = torch.where(k5[None, None, :] < order[:, None, None], p,
-                        torch.zeros_like(p))
-        yq = D[:, None, 0] + torch.einsum("bsk,bkn->bsn", p.to(dtype),
-                                          D[:, 1:MAX_ORDER + 1])
-        hit = ((jsave[None, :] >= save_ptr[:, None])
-               & (saveat[None, :] <= (t_new + tol_t)[:, None]))
-        return (save_ptr + hit.sum(dim=1),
-                torch.where(hit[:, :, None], yq, ys))
-
-    def gather_row(D, row):
-        return D[lanes, row]
-
-    def safe_factor(factor, fallback):
-        ok = torch.isfinite(factor) & (factor > 0.0)
-        return torch.where(ok, factor, torch.full_like(factor, fallback))
-
-    def err_factor(err, inv_q):
-        base = torch.clamp(err, _TINY32 * 1e3, _MAX32 / 1e3)
-        f = base ** (-inv_q)
-        f = torch.where(err <= 0.0, torch.full_like(f, MAX_FACTOR), f)
-        return torch.where(torch.isfinite(err), f, torch.zeros_like(f))
-
     def step_attempt(run):
         global jac_refreshes
         with span("bdf.predict"):
@@ -536,148 +933,12 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
             c_lu_next = torch.where(refresh, -inf,
                                     torch.where(need_lu, c, s.c_lu))
 
-        with span("bdf.control"):
-            safety = (0.9 * (2 * NEWTON_MAXITER + 1)
-                      / (2 * NEWTON_MAXITER + n_it.to(F32)))
-
-            # --- error test (norms in f32, d in the state dtype) ---
-            scale_full = (atol[:, None] + rtol[:, None]
-                          * torch.clamp(y_new.abs(), max=1e37))
-            err_norm = _rms_norm(error_const32[order][:, None]
-                                 * (d / scale_full).to(F32))
-            neg = (torch.full_like(converged, nonnegative)
-                   & (y_new.amin(dim=1) < 0.0))
-            accept = converged & (err_norm <= 1.0) & ~neg
-
-            # --- accept path: differences, dense output, order adaptation ---
-            n_eq_acc = n_equal_steps + 1
-            d_proj = (torch.clamp(y_new, min=0.0) - y_pred if nonnegative_project
-                      else d)
-            selq = rows == (o3 + 1)
-            Dq1 = torch.where(selq, D, torch.zeros_like(D)).sum(dim=1)
-            D_mid = torch.where(selq, d_proj[:, None],
-                                torch.where(rows == o3 + 2, (d_proj - Dq1)[:, None],
-                                            D))
-            contrib = torch.where(rows <= o3 + 1, D_mid, torch.zeros_like(D_mid))
-            suffix = contrib.flip(1).cumsum(dim=1).flip(1)
-            D2 = torch.where(rows <= o3, suffix, D_mid)
-            save_ptr2, ys2 = fill_saveat(t_new, h, order, D2, s.save_ptr, s.ys)
-            done = t_new >= tf - tol_t
-            hit_stop = (t_new - next_stop).abs() <= tol_t
-
-            od = order.to(F32)
-            err_m = torch.where(
-                order > 1,
-                _rms_norm(error_const32[torch.clamp(order - 1, min=0)][:, None]
-                          * (gather_row(D2, order) / scale_full).to(F32)),
-                torch.full_like(err_norm, float("inf")))
-            err_p = torch.where(
-                order < MAX_ORDER,
-                _rms_norm(error_const32[torch.clamp(order + 1, max=MAX_ORDER)][:, None]
-                          * (gather_row(D2, order + 2) / scale_full).to(F32)),
-                torch.full_like(err_norm, float("inf")))
-            factors = torch.stack([err_factor(err_m, 1.0 / od),
-                                   err_factor(err_norm, 1.0 / (od + 1)),
-                                   err_factor(err_p, 1.0 / (od + 2))], dim=1)
-            best = torch.argmax(factors, dim=1)
-            do_adapt = (n_eq_acc >= order + 1) & ~clamp
-            new_order = torch.where(do_adapt,
-                                    torch.clamp(order + best - 1, 1, MAX_ORDER),
-                                    order)
-            factor_acc = torch.where(
-                do_adapt,
-                torch.clamp(safety * factors[lanes, best], MIN_FACTOR, MAX_FACTOR),
-                torch.ones_like(safety))
-            factor_acc = safe_factor(factor_acc, 1.0)
-            # hold h on the first accepted step after a Newton failure
-            factor_acc = torch.where(s.bruised, torch.clamp(factor_acc, max=1.0),
-                                     factor_acc)
-            # Newton-failure ceiling, relaxing x1.5 per accepted step
-            ncf_cap = torch.where(
-                torch.isfinite(s.h_ncf),
-                torch.clamp(torch.clamp(0.9 * s.h_ncf / h, max=1e30).to(F32),
-                            min=1.0),
-                torch.full_like(factor_acc, MAX_FACTOR))
-            factor_acc = torch.minimum(factor_acc, safe_factor(ncf_cap, MAX_FACTOR))
-            # after a clamped step restore the pre-clamp h (overrides the caps)
-            factor_acc = torch.where(
-                clamp,
-                safe_factor(torch.clamp(h_pre / h, max=MAX_FACTOR).to(F32), 1.0),
-                factor_acc)
-            rescale_acc = clamp | do_adapt
-
-            factor_rej = safe_factor(
-                torch.clamp(safety * err_norm ** (-1.0 / (od + 1)), MIN_FACTOR, 1.0),
-                MIN_FACTOR)
-            factor_rej = torch.where(neg, torch.clamp(factor_rej, max=0.5),
-                                     factor_rej)
-
-            # outcome: accept | error-reject | jac-refresh | newton-fail
-            reject = converged & ~accept
-            nfail = ~converged & ~refresh
-            order_next = torch.where(accept, new_order, order)
-            factor = torch.where(
-                accept, factor_acc.to(tdt),
-                torch.where(reject, factor_rej.to(tdt),
-                            torch.where(nfail, torch.full_like(h, 0.5),
-                                        torch.ones_like(h))))
-            rescale = torch.where(accept, rescale_acc, reject | nfail)
-            D_base = torch.where(accept[:, None, None], D2, D)
-            D_next = torch.where(rescale[:, None, None],
-                                 _change_D(D_base, order_next, factor), D_base)
-            h_next = torch.where(rescale, h * factor, h)
-            n_eq_next = torch.where(
-                accept, torch.where(rescale_acc, 0, n_eq_acc),
-                torch.where(refresh, n_equal_steps, 0))
-            t_next = torch.where(accept, t_new, t)
-            n_steps = s.n_steps + 1
-            status = torch.where(accept & done, DONE, s.status)
-            # NaN/inf in h or t never recovers: fail the lane at once
-            h_under = (h_next < h_min) | ~(torch.isfinite(h_next)
-                                           & torch.isfinite(t_next))
-            status = torch.where(
-                status == DONE, DONE,
-                torch.where(n_steps >= max_steps, FAIL_MAX_STEPS,
-                            torch.where(h_under, FAIL_H_UNDERFLOW, RUNNING)))
-            s.merge(
-                run, t=t_next, h=h_next, order=order_next, D=D_next,
-                n_equal_steps=n_eq_next, lu=fnew.lu, piv=fnew.piv, J=J,
-                c_lu=c_lu_next, current_jac=current_jac & ~accept, status=status,
-                n_accepted=s.n_accepted + accept.long(),
-                n_rejected=s.n_rejected + (reject | nfail).long(),
-                save_ptr=torch.where(accept, save_ptr2, s.save_ptr),
-                ys=torch.where(accept[:, None, None], ys2, s.ys),
-                stop_ptr=torch.where(accept, s.stop_ptr + hit_stop.long(),
-                                     s.stop_ptr),
-                n_jev=n_jev, n_lu=n_lu, n_fev=s.n_fev + n_it, n_steps=n_steps,
-                bruised=torch.where(accept, False, s.bruised | nfail),
-                h_ncf=torch.where(nfail & ~clamp, h,
-                                  torch.where(accept, s.h_ncf * 1.5, s.h_ncf)))
-
-    def dump_chunk(mask):
-        """ys_all[b, nc[b]] = ys[b] on the lanes in ``mask``."""
-        sel = mask[:, None] & (torch.arange(chunks, device=dev)[None, :]
-                               == s.nc[:, None])
-        s.ys_all = torch.where(sel[:, :, None, None], s.ys[:, None], s.ys_all)
-
-    @spanned("bdf.chunk_transition")
-    def chunk_transition():
-        """Lanes that finished a chunk (not the last) start the next one."""
-        trans = (s.status == DONE) & (s.nc < chunks - 1)
-        dump_chunk(trans)
-        nc2 = s.nc + 1
-        h2 = torch.clamp(s.h, max=tf - t0)
-        shrink = h2 < s.h
-        D2 = torch.where(shrink[:, None, None],
-                         _change_D(s.D, s.order,
-                                   torch.where(shrink, h2 / s.h,
-                                               torch.ones_like(h2))), s.D)
-        stop_ptr2 = nc2 * n_row + row_ptr0[lanes, torch.clamp(nc2, max=chunks - 1)]
-        s.merge(trans, t=torch.full_like(s.t, t0), h=h2, D=D2, nc=nc2,
-                ys=torch.zeros_like(s.ys), save_ptr=torch.full_like(s.save_ptr,
-                                                                     save_ptr0),
-                stop_ptr=stop_ptr2, status=torch.full_like(s.status, RUNNING),
-                n_equal_steps=torch.where(shrink, 0, s.n_equal_steps))
+        s.merge(run, lu=fnew.lu, piv=fnew.piv, J=J)
+        return _Step(run=run, h_min=h_min, clamp=clamp, h=h, D=D,
+                     n_equal_steps=n_equal_steps, t_new=t_new, y_pred=y_pred,
+                     next_stop=next_stop, n_it=n_it, converged=converged, d=d,
+                     y_new=y_new, refresh=refresh, current_jac=current_jac,
+                     c_lu_next=c_lu_next, n_jev=n_jev, n_lu=n_lu)
 
     def running():
         """The running mask and whether any lane runs (the loop's read)."""
@@ -689,18 +950,38 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
             return run, going
         return run, host_sync.any_true(run, "bdf.loop")
 
-    # a step's span ends with the read that decides whether another runs
-    run, going = running()
-    while going:
-        with span("bdf.step"):
-            step_attempt(run)
-            if chunked:
-                chunk_transition()
-            run, going = running()
+    cx = _Solve(tf=tf, t0=t0, tol_t=tol_t, max_steps=max_steps,
+                nonnegative=nonnegative,
+                nonnegative_project=nonnegative_project, chunks=chunks,
+                n_row=n_row if chunked else 0, save_ptr0=save_ptr0,
+                atol=atol, rtol=rtol, saveat=saveat,
+                row_ptr0=row_ptr0 if chunked else None,
+                error_const32=error_const32, lanes=lanes, idx8=idx8, k5=k5,
+                jsave=jsave)
+    graph = None
+    if graph_refusal(list(vars(s).values())) is None:
+        graph = _tail_graph(tail_key(cx, ns), _static_bytes(vars(s)))
+    if graph is not None:
+        graph.bind(s, cx)
+    try:
+        # a step's span ends with the read that decides whether another runs
+        run, going = running()
+        while going:
+            with span("bdf.step"):
+                st = step_attempt(run)
+                if graph is None:
+                    _step_tail(s, st, cx)
+                else:
+                    with span("bdf.tail"):
+                        graph.replay(st)
+                run, going = running()
+    finally:
+        if graph is not None:
+            graph.unbind(s)
 
     if chunked:
         # the last chunk (or the one a failed lane died in) is still local
-        dump_chunk(torch.ones(B, dtype=torch.bool, device=dev))
+        _dump_chunk(s, torch.ones(B, dtype=torch.bool, device=dev), chunks)
         ys_out = s.ys_all
     else:
         ys_out = s.ys

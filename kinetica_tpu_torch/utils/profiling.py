@@ -60,6 +60,8 @@ COUNTERS = {
     "host_sync.by_site": ("ops.host_sync", "by_site"),
     "bdf.jac_refreshes": ("ops.bdf", "jac_refreshes"),
     "bdf.newton_iters": ("ops.bdf", "newton_iters"),
+    "bdf.tail_replays": ("ops.bdf", "tail_replays"),
+    "bdf.tail_captures": ("ops.bdf", "tail_captures"),
     "linalg.factor_builds": ("ops.linalg", "factor_builds"),
     "linalg.factor_lanes": ("ops.linalg", "factor_lanes"),
     "linalg.refine_sweeps": ("ops.linalg", "refine_sweeps"),
