@@ -1,4 +1,8 @@
-// Batched f32 explicit inverse by Gauss-Jordan with partial pivoting.
+// Batched explicit inverse by Gauss-Jordan with partial pivoting, in f32
+// (gj_inverse_kernel) or f64 (gj_inverse64_kernel): one elimination,
+// written once as a template over the element type. The Newton factor
+// runs the f64 kernel; the f32 one has no caller on the solve path and
+// stands as the witness that the elimination is the reference's.
 //
 // Replaces kinetica_tpu/ops/pallas_linalg.py::_gj_batch_kernel (launched by
 // _gj_call, gj_inverse). Same elimination as the reference: for column k
@@ -54,6 +58,10 @@
 //   (CUDA 12.8, sm_90a).
 // - Shared memory is the published vectors, 3 KB, static: no launch
 //   attribute.
+// - The f64 elimination is the same, each operation rounded once in f64,
+//   except the update, which rounds its product and its difference apart
+//   (the plain version's f64 arithmetic, so the two agree bit for bit); its
+//   tile is 32 doubles a thread.
 // The TPU kernel eliminated every batch member in lockstep with one-hot
 // row masks over the whole [A | I] block; here each block indexes its own
 // pivot row.
@@ -66,37 +74,56 @@ constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = kMaxN / kWarps;  // rows of a thread: warp + 16 i
 constexpr int kCols = kMaxN / 32;      // columns of a thread: lane + 32 j
-constexpr float kTiny = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
-  __shared__ float col_s[2][kMaxN];  // column k, by step parity
-  __shared__ float rowp_s[kMaxN];    // pivot row m
-  __shared__ float rowk_s[kMaxN];    // old row k (column k: 0)
-  __shared__ int piv_s[kMaxN];       // pivot row of each step
-  __shared__ int dst_s[kMaxN];       // output column of each stored column
+// each operation rounded once, in the element type
+__device__ __forceinline__ float abs_of(float a) { return fabsf(a); }
+__device__ __forceinline__ double abs_of(double a) { return fabs(a); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+// x - f p: one fused multiply-add in f32 (the reference's rounding); in f64
+// the product and the difference rounded apart (the plain version's)
+__device__ __forceinline__ float update(float x, float f, float p) {
+  return __fmaf_rn(-f, p, x);
+}
+__device__ __forceinline__ double update(double x, double f, double p) {
+  return __dsub_rn(x, __dmul_rn(f, p));
+}
+
+template <typename T>
+__device__ __forceinline__ void gj_inverse_body(const T* __restrict__ a,
+                                                T* __restrict__ out, int n) {
+  constexpr T kTiny = T(1e-30);
+  __shared__ T col_s[2][kMaxN];  // column k, by step parity
+  __shared__ T rowp_s[kMaxN];    // pivot row m
+  __shared__ T rowk_s[kMaxN];    // old row k (column k: 0)
+  __shared__ int piv_s[kMaxN];   // pivot row of each step
+  __shared__ int dst_s[kMaxN];   // output column of each stored column
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t mat = static_cast<size_t>(blockIdx.x) * n * n;
-  const float* ab = a + mat;
+  const T* ab = a + mat;
 
   for (int e = threadIdx.x; e < kMaxN; e += kThreads)
-    col_s[0][e] = col_s[1][e] = rowp_s[e] = rowk_s[e] = 0.0f;
-  float x[kRows][kCols];
+    col_s[0][e] = col_s[1][e] = rowp_s[e] = rowk_s[e] = T(0);
+  T x[kRows][kCols];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int r = warp + kWarps * i, c = lane + 32 * j;
-      x[i][j] = (r < n && c < n) ? ab[r * n + c] : 0.0f;
+      x[i][j] = (r < n && c < n) ? ab[r * n + c] : T(0);
     }
   }
   __syncthreads();
 
   for (int k = 0; k < n; ++k) {
-    float* col = col_s[k & 1];
+    T* col = col_s[k & 1];
     // 1. the owners of column k publish it, then clear it: from here on
     //    the column collects the inverse's column
 #pragma unroll
@@ -106,20 +133,20 @@ gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
       for (int i = 0; i < kRows; ++i) {
         const int r = warp + kWarps * i;
         if (own && r < n) col[r] = x[i][j];
-        x[i][j] = own ? 0.0f : x[i][j];
+        x[i][j] = own ? T(0) : x[i][j];
       }
     }
     __syncthreads();
 
     // 2. every warp finds the pivot row m (the same in every lane): the
     //    first row i >= k with the largest |a_ik|, row k if one is NaN
-    float bv = -1.0f;
+    T bv = T(-1);
     int bi = n;
     bool nan = false;
 #pragma unroll
     for (int q = 0; q < kCols; ++q) {
       const int i = lane + 32 * q;
-      const float v = (i >= k && i < n) ? fabsf(col[i]) : -1.0f;
+      const T v = (i >= k && i < n) ? abs_of(col[i]) : T(-1);
       nan |= v != v;
       const bool t = v > bv;  // i grows with q: a tie keeps the earlier row
       bv = t ? v : bv;
@@ -127,7 +154,7 @@ gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
+      const T ov = __shfl_xor_sync(kFull, bv, off);
       const int oi = __shfl_xor_sync(kFull, bi, off);
       const bool t = (ov > bv) | ((ov == bv) & (oi < bi));
       bv = t ? ov : bv;
@@ -160,9 +187,9 @@ gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
         }
       }
     }
-    float p = col[m];
-    if (fabsf(p) < kTiny) p = p < 0.0f ? -kTiny : kTiny;
-    const float inv = 1.0f / p;
+    T p = col[m];
+    if (abs_of(p) < kTiny) p = p < T(0) ? -kTiny : kTiny;
+    const T inv = T(1) / p;
     __syncthreads();
 
     // 4. update: row k becomes the scaled pivot row (column k: 1 / p), row
@@ -170,11 +197,11 @@ gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
     //    its multiple (old a_kk) of it, every other row r minus a_rk times
     //    it, by one fused multiply-add. Row m is register row i of one
     //    warp: its branch is warp-uniform and indexes no register
-    float pr[kCols];
+    T pr[kCols];
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      pr[j] = lane + 32 * j == k ? inv : __fmul_rn(rowp_s[lane + 32 * j], inv);
-    const float fk = col[k];
+      pr[j] = lane + 32 * j == k ? inv : mul_rn(rowp_s[lane + 32 * j], inv);
+    const T fk = col[k];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = warp + kWarps * i;
@@ -182,13 +209,12 @@ gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
       if (is_m) {
 #pragma unroll
         for (int j = 0; j < kCols; ++j)
-          x[i][j] = __fadd_rn(x[i][j],
-                              __fsub_rn(rowk_s[lane + 32 * j], x[i][j]));
+          x[i][j] = add_rn(x[i][j], sub_rn(rowk_s[lane + 32 * j], x[i][j]));
       }
-      const float f = is_m ? fk : col[r];
+      const T f = is_m ? fk : col[r];
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        x[i][j] = is_k ? pr[j] : __fmaf_rn(-f, pr[j], x[i][j]);
+        x[i][j] = is_k ? pr[j] : update(x[i][j], f, pr[j]);
     }
   }
   __syncthreads();
@@ -205,7 +231,7 @@ gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
   }
   __syncthreads();
 
-  float* ob = out + mat;
+  T* ob = out + mat;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
 #pragma unroll
@@ -216,6 +242,17 @@ gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+gj_inverse_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
+  gj_inverse_body(a, out, n);
+}
+
+__global__ void __launch_bounds__(kThreads)
+gj_inverse64_kernel(const double* __restrict__ a, double* __restrict__ out,
+                    int n) {
+  gj_inverse_body(a, out, n);
+}
+
 }  // namespace
 
 extern "C" int gj_inverse_launch(const void* a, void* out, int batch, int n,
@@ -224,5 +261,15 @@ extern "C" int gj_inverse_launch(const void* a, void* out, int batch, int n,
     return static_cast<int>(cudaErrorInvalidValue);
   gj_inverse_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gj_inverse64_launch(const void* a, void* out, int batch, int n,
+                                   void* stream) {
+  if (n < 1 || n > kMaxN || batch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gj_inverse64_kernel<<<batch, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(a), static_cast<double*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,12 +57,13 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..precision import assert_precision_policy
 from ..utils.profiling import span, spanned
 from . import host_sync
-from .jvp import has_tangent
+from .jvp import has_tangent, merge_dual, tangent_of
 from .linalg import (NewtonFactors, lu_precision_dtype, newton_factor,
                      newton_solve, resolve_linsolve)
 
@@ -75,11 +76,14 @@ _NOISE_ACCEPT = 0.03  # scaled-units Newton noise-floor acceptance threshold
 # since the last reset (a run reports them): the batch's stale-J
 # refreshes, its Newton iterations (each runs the RHS and the Newton
 # solve on every lane), the steps whose tail ran from a CUDA graph, and
-# the graphs captured
+# the graphs captured; the entries' lanes' steps and rejected attempts
+# (:func:`count_lanes`)
 jac_refreshes = 0
 newton_iters = 0
 tail_replays = 0
 tail_captures = 0
+lane_steps = 0
+rejected = 0
 
 # the captured tails by key, least recently used first: at most
 # MAX_TAIL_GRAPHS of them and MAX_TAIL_BYTES of static state (a graph's
@@ -101,6 +105,15 @@ F32 = torch.float32
 F64 = torch.float64
 _TINY32 = torch.finfo(F32).tiny
 _MAX32 = torch.finfo(F32).max
+
+
+def count_lanes(n_steps, n_rejected) -> None:
+    """Add a solve's per-lane ``n_steps`` and ``n_rejected`` (error-test
+    rejections and Newton failures), host arrays or ints an entry already
+    holds, to ``lane_steps`` and ``rejected``."""
+    global lane_steps, rejected
+    lane_steps += int(np.sum(n_steps))
+    rejected += int(np.sum(n_rejected))
 
 
 def time_dtype(state_dtype) -> torch.dtype:
@@ -828,7 +841,16 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
 
     @spanned("bdf.newton")
     def newton_iterate(run, t_new, pre, y_pred, c, psi, scale, fact):
-        """Simplified Newton on the running lanes: d = c f(t_new, y_pred + d) - psi."""
+        """Simplified Newton on the running lanes: d = c f(t_new, y_pred + d) - psi.
+
+        A dual ``y_pred`` (forward-mode tangents) iterates its tangent on
+        after the primal stopped, until the tangent's update passes the
+        primal's test, weighed as the primal's (atol + rtol |tangent of
+        y_pred|), within ``NEWTON_MAXITER`` iterations: the primal's test
+        alone stops the tangent short of its solution. The iterations
+        after the primal's last move the tangent only, so the primal, its
+        iteration count and its convergence are the plain solve's, bit for
+        bit."""
         global newton_iters
         d = torch.zeros_like(y_pred)
         y = y_pred
@@ -836,10 +858,29 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
         converged = torch.zeros(B, dtype=torch.bool, device=dev)
         dy_last = torch.zeros(B, dtype=F32, device=dev)
         active = run
+        y_t = tangent_of(y_pred)
+        tangent = y_t is not None
+        if tangent:
+            scale_t = atol32 + rtol32 * torch.clamp(y_t.abs(), max=1e37).to(F32)
+            t_last = torch.zeros(B, dtype=F32, device=dev)
+            t_active = run
+
+        def test(norm, last, it):
+            """(converged, diverging) of an update of scaled norm ``norm``
+            after one of ``last``."""
+            small = norm < 0.03 * newton_tol
+            if it == 0:
+                return small | (norm == 0.0), torch.zeros_like(small)
+            rate = norm / torch.clamp(last, min=_TINY32)
+            conv = small | ((rate < 1.0) & (rate / (1 - rate) * norm
+                                            < newton_tol))
+            return conv, (~small) & (rate >= 1.2) & (~conv)
+
         for it in range(NEWTON_MAXITER):
+            going = active | t_active if tangent else active
             # a lane needs >= 2 iterations unless its first update is tiny,
             # so the first read of the active mask comes after two
-            if it >= 2 and not host_sync.any_true(active, "bdf.newton"):
+            if it >= 2 and not host_sync.any_true(going, "bdf.newton"):
                 break
             newton_iters += 1
             with span("bdf.newton_iter"):
@@ -847,19 +888,20 @@ def bdf_solve(rhs: Callable, jac: Callable, y0: torch.Tensor, t0: float,
                 dy = newton_solve(fact, c[:, None] * f - psi - d,
                                   refine=refine, method=linsolve)
                 dy_norm = _scaled_norm(dy, scale)
-                small = dy_norm < 0.03 * newton_tol
-                if it > 0:
-                    rate = dy_norm / torch.clamp(dy_last, min=_TINY32)
-                    conv = small | ((rate < 1.0)
-                                    & (rate / (1 - rate) * dy_norm
-                                       < newton_tol))
-                    bad = (~small) & (rate >= 1.2) & (~conv)
+                conv, bad = test(dy_norm, dy_last, it)
+                if tangent:
+                    t_norm = _scaled_norm(tangent_of(dy), scale_t)
+                    t_conv, t_bad = test(t_norm, t_last, it)
+                    d = merge_dual(active, going, d + dy, d)
+                    y = merge_dual(active, going, y + dy, y)
+                    t_last = torch.where(going, t_norm, t_last)
+                    # a lane's tangent goes on while the primal does, or
+                    # until its own update converged (or either diverged)
+                    t_active = going & ~t_conv & ~t_bad & ~(active & bad)
                 else:
-                    conv = small | (dy_norm == 0.0)
-                    bad = torch.zeros_like(conv)
-                a = active[:, None]
-                d = torch.where(a, d + dy, d)
-                y = torch.where(a, y + dy, y)
+                    a = active[:, None]
+                    d = torch.where(a, d + dy, d)
+                    y = torch.where(a, y + dy, y)
                 n_it = torch.where(active, it + 1, n_it)
                 dy_last = torch.where(active, dy_norm, dy_last)
                 converged = torch.where(active, conv, converged)

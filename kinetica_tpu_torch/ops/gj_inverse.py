@@ -2,7 +2,13 @@
 
 Counterpart of ``kinetica_tpu/ops/pallas_linalg.py::gj_inverse`` (kernel
 ``_gj_batch_kernel``, launched by ``_gj_call``): the f32 explicit inverse of a
-batch of (n, n) matrices by Gauss-Jordan with partial pivoting. The pivot
+batch of (n, n) matrices by Gauss-Jordan with partial pivoting. The same
+elimination runs in f64 on an f64 batch (``gj_inverse64_kernel``), where
+the TPU has no f64: the Newton factor's inverse (:mod:`.linalg`), the only
+caller on the port's solve path. The f32 instantiation has no caller
+there; it is kept as the witness that the elimination is the JAX
+kernel's, bit for bit (the CPU tests against the JAX package, the card's
+kernel checks). The pivot
 of column k is the first row i >= k that holds the column's largest
 |a_ik|; a pivot with |p| < 1e-30 is clamped to +-1e-30 (0 -> +1e-30), so a
 singular member comes out finite instead of NaN.
@@ -25,14 +31,15 @@ On a CUDA tensor :func:`gj_inverse` launches the kernel or raises; on a
 CPU tensor it runs :func:`gj_inverse_plain`, the same in-place
 elimination as a batched column loop in PyTorch (its multiply-add in f64,
 rounded to odd where rounding on to f32 could part from one rounding), so
-the two agree bit for bit. ``torch.linalg.inv`` is not a stand-in: it has
-no pivot clamp.
+the two agree bit for bit. In f64 both round the update's product and
+difference apart, and agree bit for bit too. ``torch.linalg.inv`` is not
+a stand-in: it has no pivot clamp.
 
 The kernel takes n <= 128 (one 512-thread block holds the matrix in its
 registers, 32 floats a thread). Wider systems, up to 512, go through
 :func:`schur_inverse`, the reference's block-Schur composition
 (``pallas_linalg.py::schur_inverse``): Gauss-Jordan kernel launches on
-the diagonal blocks, f32 matrix products for the coupling terms.
+the diagonal blocks, matrix products in A's dtype for the coupling terms.
 
 Forward mode: both inverses carry the reference's rule
 (``_gj_inverse_jvp``), d(A^-1) = -M dA M with M the computed inverse, on
@@ -52,14 +59,16 @@ from .jvp import has_tangent, inverse_tangent
 MAX_N = 128
 MAX_SCHUR_N = 512
 PIVOT_FLOOR = 1e-30
+DTYPES = (torch.float32, torch.float64)
 
 # kernel launches since the last reset (the plain path never counts)
 launches = 0
 
 
 def _check(A: torch.Tensor) -> None:
-    if A.dtype != torch.float32:
-        raise TypeError(f"gj_inverse: A must be float32, got {A.dtype}")
+    if A.dtype not in DTYPES:
+        raise TypeError(f"gj_inverse: A must be float32 or float64, got "
+                        f"{A.dtype}")
     if A.ndim != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"gj_inverse: A must be (B, n, n), got {tuple(A.shape)}")
     if A.shape[1] > MAX_N:
@@ -93,9 +102,9 @@ def _gj_plain(A: torch.Tensor) -> torch.Tensor:
         m = torch.where(score >= top, rows, n).amin(dim=1)
         m = torch.where(m < n, m, k)                     # NaN column
         piv = col[lanes, m]
+        floor = torch.full_like(piv, PIVOT_FLOOR)
         piv = torch.where(piv.abs() < PIVOT_FLOOR,
-                          torch.where(piv < 0, -PIVOT_FLOOR, PIVOT_FLOOR)
-                          .to(piv.dtype), piv)
+                          torch.where(piv < 0, -floor, floor), piv)
         inv = 1.0 / piv
         row_m = x[lanes, m, :]
         row_k = x[:, k, :].clone()
@@ -127,7 +136,9 @@ _F32_MIN = 2.0 ** -126
 def _fused_sub(a: torch.Tensor, b: torch.Tensor,
                c: torch.Tensor) -> torch.Tensor:
     """a - b c of f32 tensors (broadcast), rounded once to f32: a fused
-    multiply-add, as the kernel's ``__fmaf_rn`` and the reference's.
+    multiply-add, as the kernel's ``__fmaf_rn`` and the reference's. Of
+    f64 tensors, the product and the difference rounded apart, as the f64
+    kernel's.
 
     The product of two f32 values is exact in f64, so s = a - b c in f64
     is the exact value rounded once. Rounding s on to f32 can part from
@@ -136,6 +147,8 @@ def _fused_sub(a: torch.Tensor, b: torch.Tensor,
     first (an inexact, even s moves one ulp toward the exact value, its
     TwoSum error), which with 29 spare bits rounds to f32 as the exact
     value does."""
+    if a.dtype == torch.float64:
+        return a - b * c
     a64 = a.double()
     p = b.double() * c.double()
     s = a64 - p
@@ -150,7 +163,7 @@ def _fused_sub(a: torch.Tensor, b: torch.Tensor,
 
 
 def gj_inverse(A: torch.Tensor) -> torch.Tensor:
-    """(B, n, n) f32 -> (B, n, n) f32 inverses, n <= 128."""
+    """(B, n, n) f32 or f64 -> (B, n, n) inverses of its dtype, n <= 128."""
     _check(A)
     return _with_rule(A, _gj_inverse)
 
@@ -179,9 +192,11 @@ def _gj_inverse(A: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(A)
     if A.shape[0] == 0:
         return out
-    err = _library().gj_inverse_launch(
-        A.data_ptr(), out.data_ptr(), A.shape[0], A.shape[1],
-        torch.cuda.current_stream(A.device).cuda_stream)
+    lib = _library()
+    launch = (lib.gj_inverse_launch if A.dtype == torch.float32
+              else lib.gj_inverse64_launch)
+    err = launch(A.data_ptr(), out.data_ptr(), A.shape[0], A.shape[1],
+                 torch.cuda.current_stream(A.device).cuda_stream)
     check_launch(err, "gj_inverse")
     launches += 1
     return out
@@ -209,8 +224,9 @@ def _schur(A: torch.Tensor, inv) -> torch.Tensor:
 
 
 def _check_schur(A: torch.Tensor) -> None:
-    if A.dtype != torch.float32:
-        raise TypeError(f"schur_inverse: A must be float32, got {A.dtype}")
+    if A.dtype not in DTYPES:
+        raise TypeError(f"schur_inverse: A must be float32 or float64, got "
+                        f"{A.dtype}")
     if A.ndim != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(
             f"schur_inverse: A must be (B, n, n), got {tuple(A.shape)}")
@@ -219,7 +235,8 @@ def _check_schur(A: torch.Tensor) -> None:
 
 
 def schur_inverse(A: torch.Tensor) -> torch.Tensor:
-    """(B, n, n) f32 -> (B, n, n) f32 inverses, n <= 512, by 2x2 blocks.
+    """(B, n, n) f32 or f64 -> (B, n, n) inverses of its dtype, n <= 512,
+    by 2x2 blocks.
 
     With A = [[A11, A12], [A21, A22]], A11 of n1 = 128 max(1, (n // 2) //
     128) rows, and S = A22 - A21 A11^-1 A12::
@@ -229,11 +246,11 @@ def schur_inverse(A: torch.Tensor) -> torch.Tensor:
 
     recursively, so every diagonal block that reaches :func:`gj_inverse`
     is at most 128 wide (181 -> 128 + 53, 512 -> (128 + 128) + (128 +
-    128)). The coupling products are plain f32 matmuls (TF32 is off, the
-    reference's ``Precision.HIGHEST``). Pivoting stays inside the diagonal
-    blocks, so this is no general pivoted inverse: the Newton factor
-    equilibrates A first and refines the result by Newton-Schulz. At n <=
-    128 it is :func:`gj_inverse` itself.
+    128)). The coupling products are plain matmuls in A's dtype (TF32 is
+    off, the reference's ``Precision.HIGHEST``). Pivoting stays inside the
+    diagonal blocks, so this is no general pivoted inverse: the Newton
+    factor equilibrates A first and refines the result by Newton-Schulz.
+    At n <= 128 it is :func:`gj_inverse` itself.
     """
     _check_schur(A)
     return _with_rule(A, lambda a: _schur(a, gj_inverse))
@@ -251,9 +268,9 @@ def _with_rule(A: torch.Tensor, inv) -> torch.Tensor:
 
 def _library() -> ctypes.CDLL:
     lib = load_library("gj_inverse")
-    fn = lib.gj_inverse_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for fn in (lib.gj_inverse_launch, lib.gj_inverse64_launch):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib

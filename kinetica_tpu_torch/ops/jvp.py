@@ -29,6 +29,26 @@ def has_tangent(*xs) -> bool:
                and forward_ad.unpack_dual(x).tangent is not None for x in xs)
 
 
+def tangent_of(x: torch.Tensor) -> torch.Tensor | None:
+    """The forward-mode tangent of ``x``, None without one."""
+    return forward_ad.unpack_dual(x).tangent
+
+
+def merge_dual(mask_p: torch.Tensor, mask_t: torch.Tensor,
+               new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Lanes of ``new`` where ``mask_p`` in the primal and where ``mask_t``
+    in the tangent, of ``old`` elsewhere; (B,) masks over (B, ...)
+    tensors. A missing tangent is zero."""
+    pn, tn = forward_ad.unpack_dual(new)
+    po, to = forward_ad.unpack_dual(old)
+    tn = torch.zeros_like(pn) if tn is None else tn
+    to = torch.zeros_like(po) if to is None else to
+    shape = (-1,) + (1,) * (pn.ndim - 1)
+    return forward_ad.make_dual(
+        torch.where(mask_p.view(shape), pn, po),
+        torch.where(mask_t.view(shape), tn, to))
+
+
 def refuse_tangent(name: str, *xs) -> None:
     """Raise where a kernel without a forward-mode rule meets a tangent."""
     if has_tangent(*xs):

@@ -5,10 +5,10 @@ refinement in ``kinetica_tpu/ops/dd.py``, in the reference's accelerator
 form:
 
 * the Newton matrix A = I - c J is built in J's dtype (f32 on the main
-  path), equilibrated, inverted in f32 by the Gauss-Jordan kernel
+  path), equilibrated in f32, inverted in f64 by the Gauss-Jordan kernel
   (:mod:`kinetica_tpu_torch.ops.gj_inverse`; above 128 species by its
-  block-Schur composition, up to 512), refined by Newton-Schulz and
-  stored with its scales folded in;
+  block-Schur composition, up to 512), rounded to f32, refined by
+  Newton-Schulz and stored with its scales folded in;
 * "inv" and "inv_gated" solve with one f32 matvec through that inverse
   plus exactly two refinement sweeps against native f64 residuals;
   "inv_fused" hands the whole solve, with its adaptive sweeps, to the
@@ -16,7 +16,16 @@ form:
 
 Hopper has native f64, so the reference's double-f32 pair residuals are
 not carried over: the accurate Newton-Schulz residual is an f64 matmul
-(the reference's ``f64dot`` form).
+(the reference's ``f64dot`` form). For the same reason the inverse is
+eliminated in f64, where the reference's TPU eliminates in f32: over long
+horizons (large steps, A = I - c J near-singular in f32) the f32
+elimination's inverse leaves a residual I - A M far above 1, which
+Newton-Schulz cannot refine, and the Newton iteration then stops on
+updates that no longer measure its error. The f64 elimination's inverse,
+rounded to f32, serves there as an exact one would (the 1095-reaction
+network's 4e-3 K/s ramp over 1e5 s, on the CPU: 1.6e-8 of error against
+a tight SciPy solve in 1793 steps with the f32 elimination, 3.7e-10 in
+862 with the f64 one).
 
 Lane gating: the reference compacts the factor rebuild to the lanes whose
 ``need`` flag is set with a ``custom_vmap`` rule. Here the needing lanes
@@ -55,11 +64,13 @@ EPS32 = 1.2e-7
 _gated = True          # the phase-2 gate of ``newton_schulz_refine``
 
 # since the last reset: the factor builds that rebuilt a lane (every
-# :func:`newton_factor` call that built one), the lanes they built, and the
-# batch's Newton-Schulz sweeps (cheap and accurate)
+# :func:`newton_factor` call that built one), the lanes they built, the
+# batch's Newton-Schulz sweeps (cheap and accurate), and of those the
+# accurate ones (an f64 residual each)
 factor_builds = 0
 factor_lanes = 0
 refine_sweeps = 0
+refine_accurate_sweeps = 0
 
 
 def resolve_linsolve(method: str, ns: int) -> str:
@@ -134,7 +145,7 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
 
     Returns ``(minv, rn)``, rn the last (or predicted) residual per lane.
     """
-    global refine_sweeps
+    global refine_sweeps, refine_accurate_sweeps
     tol = NS_TOL
     B, n, _ = A32.shape
     dev = A32.device
@@ -168,6 +179,7 @@ def newton_schulz_refine(minv: torch.Tensor, A32: torch.Tensor):
         if not host_sync.any_true(active, "linalg.refine_accurate"):
             break
         refine_sweeps += 1
+        refine_accurate_sweeps += 1
         R = _residual_f64(A32, minv)
         rn_new = _rnorm(R)
         do = active & (rn_new > tol)
@@ -200,10 +212,10 @@ def ungated_refinement():
 
 
 def _inv_factor(A: torch.Tensor, inverse=schur_inverse) -> torch.Tensor:
-    """Equilibrate -> Gauss-Jordan kernel (block-Schur above 128 species)
-    -> Newton-Schulz -> fold scales; rule 2 on a dual ``A``. ``inverse``
-    is the f32 inverse of the equilibrated matrix (the kernel's;
-    ``schur_inverse_plain`` for comparisons)."""
+    """Equilibrate (f32) -> Gauss-Jordan kernel in f64 (block-Schur above
+    128 species), rounded to f32 -> Newton-Schulz -> fold scales; rule 2
+    on a dual ``A``. ``inverse`` is the f64 inverse of the equilibrated
+    matrix (the kernel's; ``schur_inverse_plain`` for comparisons)."""
     if has_tangent(A):
         return _FactorRule.apply(A, inverse)
     return _inv_factor_primal(A, inverse)
@@ -226,7 +238,7 @@ class _FactorRule(torch.autograd.Function):
 
 def _inv_factor_primal(A: torch.Tensor, inverse) -> torch.Tensor:
     As, dr, dc = _equilibrate(A)
-    minv = inverse(As.contiguous())
+    minv = inverse(As.double()).to(torch.float32)
     minv, _ = newton_schulz_refine(minv, As)
     return dc[:, :, None] * minv * dr[:, None, :]
 

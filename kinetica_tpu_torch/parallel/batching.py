@@ -466,6 +466,7 @@ class EnsembleProblem:
                                int(failed.sum()), abstol_v[failed].min(),
                                reltol_v[failed].min())
         with span("ensemble.collect"):
+            bdf.count_lanes(lane_stats["n_steps"], lane_stats["n_rejected"])
             m = len(self.saveat_local)
             ys = ys.reshape(B, self.n_chunks * m, -1)
             ys = np.concatenate([np.asarray(u0s)[:, None, :], ys], axis=1)

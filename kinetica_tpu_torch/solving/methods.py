@@ -588,6 +588,7 @@ def solve_network(method: AbstractODESolveMethod, sd: SpeciesData, rd: RxData,
         ts, ys, status, stats = _run_complete(rhs, jac, u0, pars, saveat,
                                               global_stops, payload,
                                               prepare=prepare)
+    bdf.count_lanes(stats["n_steps"], stats["n_rejected"])
     logger.info(" - Solved.")
 
     # --- variable-condition traces at the save times (ODESolutionVC parity) ---

@@ -141,7 +141,8 @@ def solve_work(B, n, sweeps=4):
             2.0 * B * n * n * (1 + 2 * sweeps))
 
 
-def inverse_work(B, n):
-    """(bytes, f32 flops) of B inverses of n x n: A read, M written; the
-    2 n^3 flops of Gauss-Jordan."""
-    return 2 * B * n * n * 4, 2.0 * B * n ** 3
+def inverse_work(B, n, itemsize=4):
+    """(bytes, flops) of B inverses of n x n, of ``itemsize``-byte
+    elements (4: f32, 8: f64): A read, M written; the 2 n^3 flops of
+    Gauss-Jordan."""
+    return 2 * B * n * n * itemsize, 2.0 * B * n ** 3

@@ -62,9 +62,12 @@ COUNTERS = {
     "bdf.newton_iters": ("ops.bdf", "newton_iters"),
     "bdf.tail_replays": ("ops.bdf", "tail_replays"),
     "bdf.tail_captures": ("ops.bdf", "tail_captures"),
+    "bdf.lane_steps": ("ops.bdf", "lane_steps"),
+    "bdf.rejected": ("ops.bdf", "rejected"),
     "linalg.factor_builds": ("ops.linalg", "factor_builds"),
     "linalg.factor_lanes": ("ops.linalg", "factor_lanes"),
     "linalg.refine_sweeps": ("ops.linalg", "refine_sweeps"),
+    "linalg.refine_accurate_sweeps": ("ops.linalg", "refine_accurate_sweeps"),
     **{f"{k}.launches": (f"ops.{k}", "launches")
        for k in ("fused_rhs", "dd_contract", "gj_inverse", "newton_solve",
                  "grid_probe")},

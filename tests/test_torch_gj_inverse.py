@@ -207,12 +207,12 @@ def test_near_singular_schur_matches_reference(seed):
 
 # ---- wrapper guards (checked before any device code) ----
 
-@pytest.mark.parametrize("what", ["f64", "noncontig", "not_square", "2d",
+@pytest.mark.parametrize("what", ["f16", "noncontig", "not_square", "2d",
                                   "too_wide"])
 def test_guard_rejects_bad_inputs(what):
     from kinetica_tpu_torch.ops.gj_inverse import gj_inverse
     bad = {
-        "f64": torch.eye(4, dtype=torch.float64).expand(2, 4, 4).contiguous(),
+        "f16": torch.eye(4, dtype=torch.float16).expand(2, 4, 4).contiguous(),
         "noncontig": torch.eye(4).expand(2, 4, 4),
         "not_square": torch.ones(2, 4, 5),
         "2d": torch.eye(4),
